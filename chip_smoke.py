@@ -17,21 +17,43 @@ Phases, in order; each raises on failure and nothing catches:
     shapes, M=1 and M=2048, with codes that hit -8 and 7; times of the
     kernel, the plain version and ``torch.matmul`` on the bf16
     dequantised weight (timed only).
- 4. the kernel inside the real path: a qwen2.5-7b-width model with 2
-    layers in f32; greedy tokens of ``decode_backend="cuda"`` and
-    ``"sdpa"`` must be identical over 16 tokens.
- 5. the main path at full width: qwen2.5-7b, 28 layers, bf16, random
-    weights drawn on the card; three requests of 2048 prompt tokens
-    through ``DecodeEngine`` (two ``generate_streamed``, one
+ 4. paged-decode-attention kernel against its plain version in bf16, f32
+    and int8 KV at the paged serving shape (4 slots of ~2100 live tokens,
+    page 16, G=7, hd 128) and on ragged lengths with a length-0 lane at
+    pages 4, 8 and 32; a poisoned garbage page 0 must leave the output
+    bit-equal; times of the kernel, the plain version and gather +
+    ``F.scaled_dot_product_attention`` (timed only), bf16 and int8.
+ 5. the decode-attention kernel inside the real path: a qwen2.5-7b-width
+    model with 2 layers in f32; greedy tokens of ``decode_backend="cuda"``
+    and ``"sdpa"`` must be identical over 16 tokens.
+ 6. the paged kernel inside the real path: the same f32 model serves 4
+    sessions through 2 paged slots (``generate_continuous``, chunked
+    prefill); each session's greedy tokens on the "cuda" route must equal
+    those on the "sdpa" gather route and its own batch-1
+    ``generate_streamed`` tokens.
+ 7. the batch-1 main path at full width: qwen2.5-7b, 28 layers, bf16,
+    random weights drawn on the card; three requests of 2048 prompt
+    tokens through ``DecodeEngine`` (two ``generate_streamed``, one
     ``generate_fused``, 32 new tokens each); the decode-attention launch
     count must be 28 x decode steps; first-step logits of "cuda" and
     "sdpa" must agree; p50 step time against the analytic floor.
- 6. the int4 main path: the same model quantised on the card
+ 8. the int4 main path: the same model quantised on the card
     (``int4_fused``), one request; the int4 launch count must be 7 x 28
     per decode step plus the prefill's.
- 7. the kernels line: one JSON object with every ported kernel's
+ 9. the paged serving path at full width: qwen2.5-7b, 28 layers, bf16,
+    8 sessions (prompts 2048+, 32+ new tokens) through 4 paged slots,
+    page 16, prefill chunk 512, through ``generate_continuous`` twice:
+    bf16 KV at full backing with K=1, and int8 KV on an oversubscribed
+    pool (at least one preemption) with K=4.  Every session must end
+    with its full budget, the decode step must be captured once per
+    (route, K), its replays must launch the paged kernel 28 times per
+    device step (the capture's launches times the replays; the profiler
+    must see the same 28 in a steady window), and first-step logits of
+    "cuda" and "sdpa" must agree;
+    p50 decode time per token, aggregate tok/s and the device-busy share.
+10. the kernels line: one JSON object with every ported kernel's
     numbers, and a line naming the TPU kernels still to port.
- 8. last line: ``{"ok": true, "device": {...}}``.
+11. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Times are CUDA-event medians of 30 runs
@@ -273,7 +295,136 @@ def check_int4_matmul(dev, timer):
                 shape="sum of the 7 qwen2.5-7b layer matmuls at M=1, bf16")
 
 
-# ---------------------------------------------------------------- phases 4-6
+# ---------------------------------------------------------------- phase 4
+PAGE = 16
+PAGED_LENGTHS = (2100, 2081, 2117, 2064)     # live tokens per slot
+PAGED_SPAN = 2176                            # 136 pages of 16: max_len of phase 9
+
+
+def paged_case(dev, dtype, quant, lengths, page, span, seed, Hq=28, Hkv=4, hd=128):
+    """q, pools (int8 codes + f32 scales from quantising normal K/V when
+    ``quant``), a shuffled block table whose blocks past each length
+    point at the garbage page 0, and the lengths."""
+    from repro_torch.quant.kv import quantize_kv_write
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, max_blocks = len(lengths), -(-span // page)
+    n_pages = 1 + B * max_blocks
+    q = 2 * torch.randn((B, Hq, hd), generator=g, device=dev).to(dtype)
+    shape = (n_pages, page, Hkv, hd)
+    k = torch.randn(shape, generator=g, device=dev)
+    v = torch.randn(shape, generator=g, device=dev)
+    if quant:
+        (k, ks), (v, vs) = quantize_kv_write(k), quantize_kv_write(v)
+    else:
+        k, v, ks, vs = k.to(dtype), v.to(dtype), None, None
+    perm = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    live = torch.arange(max_blocks, device=dev)[None] * page < lens[:, None]
+    bt = torch.where(live, perm.reshape(B, max_blocks), 0).to(torch.int32).contiguous()
+    return q, k, v, bt, lens, ks, vs
+
+
+def paged_plain(q, k, v, bt, lens, ks, vs):
+    from repro_torch.kernels.paged_decode_attention import ref
+    if ks is None:
+        out = ref.paged_decode_attention_ref(q, k, v, bt, lens)
+    else:
+        out = ref.paged_decode_attention_quant_ref(q, k, v, ks, vs, bt, lens)
+    return out.to(q.dtype)
+
+
+def gather_sdpa(q, k, v, bt, lens, ks, vs):
+    """The library yardstick: gather each slot's view through the block
+    table (dequantised to q's dtype on int8) and one
+    ``F.scaled_dot_product_attention`` call over it.  Timed only."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import paged_view
+    from repro_torch.quant.kv import dequantize_kv
+    kv, vv = paged_view(k, bt), paged_view(v, bt)
+    if ks is not None:
+        kv = dequantize_kv(kv, paged_view(ks, bt), q.dtype)
+        vv = dequantize_kv(vv, paged_view(vs, bt), q.dtype)
+    S = kv.shape[1]
+    mask = (torch.arange(S, device=q.device)[None] < lens[:, None])[:, None, None]
+    return F.scaled_dot_product_attention(q[:, :, None], kv.transpose(1, 2),
+                                          vv.transpose(1, 2), attn_mask=mask,
+                                          enable_gqa=True)
+
+
+def check_paged_decode_attention(dev, timer):
+    from repro_torch.kernels.paged_decode_attention import ops
+    log("== phase 4: paged decode attention, kernel vs plain")
+    cases = [("serving shape", PAGED_LENGTHS, PAGE, PAGED_SPAN),
+             ("ragged, length-0 lane, page 4", (1000, 0, 517, 1), 4, 1024),
+             ("ragged, length-0 lane, page 8", (0, 777, 8, 1023), 8, 1024),
+             ("ragged, length-0 lane, page 32", (300, 33, 0, 2047), 32, 2048)]
+    variants = [("bf16", torch.bfloat16, False), ("f32", torch.float32, False),
+                ("int8 KV", torch.bfloat16, True)]
+    for name, dtype, quant in variants:
+        for i, (label, lengths, page, span) in enumerate(cases):
+            args = paged_case(dev, dtype, quant, lengths, page, span, seed=i)
+            out = ops.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            err, rel = rel_err(out, paged_plain(*args))
+            zeros = all(bool(out[b].eq(0).all())
+                        for b, n in enumerate(lengths) if n == 0)
+            k, v, ks, vs = args[1], args[2], args[5], args[6]
+            k[0], v[0] = (100, -100) if quant else (1e9, -1e9)
+            if quant:
+                ks[0], vs[0] = 1e9, 1e9
+            poisoned = ops.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            same = torch.equal(poisoned, out)
+            ok = rel <= TOL[dtype] and zeros and same
+            log(f"  {name:8s} {label}: lengths {lengths}: max_abs_err {err:.3g} "
+                f"(tol {TOL[dtype]:g} x max(1,|plain|)), length-0 lanes zero "
+                f"{zeros}, poisoned page 0 bit-equal {same}: "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"paged_decode_attention {name} {label} "
+                                     "disagrees")
+
+    rows = []
+    for name, quant in (("paged_decode_attention", False),
+                        ("paged_decode_attention_int8", True)):
+        args = paged_case(dev, torch.bfloat16, quant, PAGED_LENGTHS, PAGE,
+                          PAGED_SPAN, seed=99)
+        q = args[0]
+        out = ops.paged_decode_attention(*args)
+        err, _ = rel_err(out, paged_plain(*args))
+        ms = timer(lambda: ops.paged_decode_attention(*args))
+        plain_ms = timer(lambda: paged_plain(*args))
+        lib_ms = timer(lambda: gather_sdpa(*args))
+        # the kernel reads each live token's K/V (codes and scales) once,
+        # the block-table entries of the live pages and the lengths; q in,
+        # out out
+        live_pages = sum(-(-n // PAGE) for n in PAGED_LENGTHS)
+        tok_bytes = ops.kv_token_bytes(4, 128, 2, "int8" if quant else "none")
+        nbytes = (sum(PAGED_LENGTHS) * tok_bytes + 4 * live_pages
+                  + 4 * len(PAGED_LENGTHS) + q.numel() * 2 + out.numel() * 2)
+        flops = 4 * 28 * 128 * sum(PAGED_LENGTHS)
+        b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
+        kv = "int8 codes + f32 scales" if quant else "bf16"
+        log(f"  times, {kv} KV, 4 slots {PAGED_LENGTHS} tokens, page {PAGE}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, gather + "
+            f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}: {nbytes} bytes of live tokens, their "
+            f"block-table entries, lengths, q and out)")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/paged_decode_attention.cu",
+            replaces="src/repro/kernels/paged_decode_attention/"
+                     "paged_decode_attention.py:136",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms,
+            shape=f"q bf16 B=4 Hq=28 Hkv=4 hd=128, {kv} pools, page {PAGE}, "
+                  f"lengths {list(PAGED_LENGTHS)}"))
+        del args
+    return rows
+
+
+# ---------------------------------------------------------------- phases 5-9
 def prompt_batch(vocab, dev, n=None, seed=0):
     rng = np.random.default_rng(seed)
     n = n or PROMPT
@@ -284,7 +435,7 @@ def check_f32_tokens(dev):
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serving import DecodeEngine
-    log("== phase 4: kernel inside the real path (qwen2.5-7b width, 2 layers, f32)")
+    log("== phase 5: kernel inside the real path (qwen2.5-7b width, 2 layers, f32)")
     cfg = get_config("qwen2.5-7b").replace(n_layers=2, dtype="float32")
     model = Model(cfg, decode_backend="cuda", device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(1))
@@ -313,7 +464,7 @@ def main_path(dev):
     from repro_torch.kernels.int4_matmul import ops as i4_ops
     from repro_torch.models.model import Model
     from repro_torch.serving import DecodeEngine
-    log("== phase 5: main path, qwen2.5-7b full width (28 layers, bf16), "
+    log("== phase 7: main path, qwen2.5-7b full width (28 layers, bf16), "
         f"prompt {PROMPT}, {NEW} new tokens")
     cfg = get_config("qwen2.5-7b")
     model = Model(cfg, decode_backend="cuda", device=dev)
@@ -378,7 +529,7 @@ def main_path(dev):
     device_time(model, engine, batch, max_len, tok, p50)
     torch.cuda.empty_cache()
 
-    log("== phase 6: int4 main path (int4_fused, quantised on the card)")
+    log("== phase 8: int4 main path (int4_fused, quantised on the card)")
     t0 = time.perf_counter()
     engine_q = DecodeEngine(model, params, quant_path="int4_fused")
     torch.cuda.synchronize()
@@ -432,12 +583,236 @@ def device_time(model, engine, batch, max_len, tok, p50_ms, steps=4):
         log(f"    {t / 1e3 / steps:8.4f} ms/step  {n // steps:5d}x  {name[:90]}")
 
 
+def check_f32_paged_tokens(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import mixed_requests
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine
+    log("== phase 6: paged kernel inside the real path (qwen2.5-7b width, "
+        "2 layers, f32): 4 sessions through 2 paged slots")
+    cfg = get_config("qwen2.5-7b").replace(n_layers=2, dtype="float32")
+    model = Model(cfg, decode_backend="cuda", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    reqs = mixed_requests(cfg, 4, base_prompt=200, base_new=12, seed=2)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 1
+    engine = DecodeEngine(model, params)
+    streams = {}
+    for backend in ("cuda", "sdpa"):
+        model.decode_backend = backend
+        res = engine.generate_continuous(reqs, n_slots=2, max_len=max_len,
+                                         paged=True, page_size=PAGE,
+                                         prefill_chunk=64)
+        if res.step_cache_size != 1:
+            raise AssertionError(f"{backend}: {res.step_cache_size} graphs")
+        streams[backend] = {r.session_id: res.tokens_for(r.session_id).tolist()
+                            for r in reqs}
+    model.decode_backend = "cuda"
+    for r in reqs:
+        batch = {"tokens": torch.from_numpy(r.prompt)[None].to(dev)}
+        one = engine.generate_streamed(batch, max_len=max_len,
+                                       n_new=r.max_new_tokens).tokens[0]
+        same = (streams["cuda"][r.session_id] == streams["sdpa"][r.session_id]
+                == one.cpu().tolist())
+        log(f"  {r.session_id} (prompt {len(r.prompt)}, {r.max_new_tokens} new): "
+            f"cuda {streams['cuda'][r.session_id]}: "
+            f"{'identical to sdpa and batch-1' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"f32 paged greedy tokens differ for "
+                                 f"{r.session_id}")
+    del params, model, engine
+    torch.cuda.empty_cache()
+
+
+def paged_first_step_logits(model, params, reqs, max_len, kv_dtype):
+    """First decode step of 4 slots prefilled with the first 4 prompts,
+    on the "cuda" route and the "sdpa" gather route from the same cache
+    (positions reset between the two; the step rewrites the same rows)."""
+    cache = model.init_cache(4, max_len, kv_dtype=kv_dtype, paged=True,
+                             page_size=PAGE)
+    toks, nxt = torch.zeros((4, 1), dtype=torch.int32, device=model.device), 1
+    for slot, r in enumerate(reqs[:4]):
+        n = -(-(len(r.prompt) + 1) // PAGE)
+        cache["block_table"][slot, :n] = torch.arange(nxt, nxt + n)
+        nxt += n
+        logits, _ = model.prefill_chunk_into_slot(
+            params, {"tokens": torch.from_numpy(r.prompt)[None].to(model.device)},
+            cache, slot, 0)
+        toks[slot, 0] = logits[0, -1].argmax()
+    prefill_chunk_time(model, params, cache, reqs[0])
+    pos0 = cache["pos"].clone()
+    out = {}
+    for backend in ("cuda", "sdpa"):
+        model.decode_backend = backend
+        cache["pos"].copy_(pos0)
+        out[backend] = model.decode_step(params, cache, toks)[0].float()
+    model.decode_backend = "cuda"
+    if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        raise AssertionError("non-finite first-step logits")
+    diff = float((out["cuda"] - out["sdpa"]).abs().max())
+    scale = float(out["sdpa"].abs().max())
+    agree = bool(torch.equal(out["cuda"].argmax(-1), out["sdpa"].argmax(-1)))
+    log(f"  first-step logits cuda vs sdpa (4 slots): max_abs_diff {diff:.4g}, "
+        f"max|logit| {scale:.4g}, argmax {'agrees' if agree else 'differs'} "
+        f"(tol 5e-2 x max|logit|)")
+    if not agree or diff > 5e-2 * scale:
+        raise AssertionError("paged first-step logits of cuda and sdpa disagree")
+
+
+def prefill_chunk_time(model, params, cache, req, C=512, reps=3):
+    """Host-clock time (synchronised) of one 512-token prefill chunk at
+    the end of slot 0's prompt, and its largest kernels under
+    torch.profiler.  Re-prefilling rewrites the same rows."""
+    from torch.profiler import ProfilerActivity, profile
+    aligned = len(req.prompt) // PAGE * PAGE
+    C = min(C, aligned)
+    start = aligned - C
+    batch = {"tokens": torch.from_numpy(req.prompt[start:start + C])[None].to(
+        model.device)}
+    pos = int(cache["pos"][0])
+
+    def run():
+        model.prefill_chunk_into_slot(params, batch, cache, 0, start)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    cache["pos"][0] = pos
+    rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    log(f"  one {C}-token prefill chunk at position {start}: {wall:.4f} ms wall, "
+        f"{sum(r[0] for r in rows) / 1e3:.4f} ms device (torch.profiler); "
+        f"largest:")
+    for t, name, n in sorted(rows, reverse=True)[:5]:
+        log(f"      {t / 1e3:8.4f} ms  {n:5d}x  {name[:90]}")
+
+
+def paged_window(model, params, reqs, max_len, kw, ticks=3):
+    """Device view of steady paged decode: a scheduler over the first 4
+    sessions runs until every slot decodes and its graph is captured;
+    then ``ticks`` ticks run under torch.profiler, timed by the host
+    clock (synchronised).  Returns (paged-kernel launches per device
+    step, device ms per tick, wall ms per tick, the profiler's rows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import SlotScheduler
+    sched = SlotScheduler(model, params, max_len=max_len, **kw)
+    for r in reqs[:4]:
+        sched.submit(r)
+    K = sched.steps_per_tick
+    with torch.inference_mode():
+        for _ in range(1000):
+            if all(s is not None and s.decoding for s in sched.slots) \
+                    and sched.step_cache_size():
+                break
+            sched.tick()
+        else:
+            raise AssertionError("the 4 slots never decoded together")
+        torch.cuda.synchronize()
+        steps0 = sched.decode_steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                sched.tick()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / ticks
+        dev_steps = (sched.decode_steps - steps0) * K
+    rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    busy = sum(r[0] for r in rows) / 1e3 / ticks
+    partial = sum(r[2] for r in rows if "paged_partial" in r[1])
+    return partial / max(dev_steps, 1), busy, wall, rows
+
+
+def paged_serving(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_decode_attention import ops as pda_ops
+    from repro_torch.launch.serve import mixed_requests
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine, programs
+    log(f"== phase 9: paged serving, qwen2.5-7b full width (28 layers, bf16), "
+        f"8 sessions through 4 slots, prompts {PROMPT}+, {NEW}+ new tokens, "
+        f"page {PAGE}, prefill chunk 512")
+    cfg = get_config("qwen2.5-7b")
+    model = Model(cfg, decode_backend="cuda", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    reqs = mixed_requests(cfg, 8, base_prompt=PROMPT, base_new=NEW, seed=0)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 1
+    pages_for = [-(-(len(r.prompt) + r.max_new_tokens - 1) // PAGE) for r in reqs]
+    # 8 pages short of the first four sessions' full length: they cannot
+    # all reach their budgets resident, so one is preempted
+    tight = 1 + sum(pages_for[:4]) - 8
+    counts = []
+    for label, kv_dtype, n_pages, K in (
+            ("bf16 KV, full backing, K=1", None, None, 1),
+            (f"int8 KV, {tight} pages (oversubscribed), K=4", torch.int8, tight, 4)):
+        engine = DecodeEngine(model, params, kv_dtype=kv_dtype)
+        kw = dict(n_slots=4, paged=True, page_size=PAGE, n_pages=n_pages,
+                  prefill_chunk=512, steps_per_tick=K)
+        pda_ops.launches = 0
+        programs.captured_launches.clear()
+        programs.replay_launches.clear()
+        res = engine.generate_continuous(reqs, max_len=max_len, **kw)
+        wrapper = pda_ops.launches
+        captured = programs.captured_launches.get("paged_decode_attention", 0)
+        replayed = programs.replay_launches.get("paged_decode_attention", 0)
+        launches = wrapper - captured + replayed    # launched on the card
+        counts.append(launches)
+        budgets = {r.session_id: r.max_new_tokens for r in reqs}
+        got = {sid: len(s.tokens) for sid, s in res.sessions.items()}
+        step_s = [t for s in res.sessions.values() for t in s.step_times_s]
+        log(f"  {label}: {len(res.sessions)} sessions, {res.run_tokens} tokens in "
+            f"{res.ticks} ticks / {res.dispatches} decode dispatches, "
+            f"{res.preemptions} preemptions, {res.prefill_tokens} prefill tokens; "
+            f"{res.step_cache_size} CUDA graph(s) captured; paged-kernel "
+            f"launches {launches} = {wrapper} wrapper calls (warm-up + capture, "
+            f"{2 * K} x {cfg.n_layers}) - {captured} recorded at capture + "
+            f"{replayed} by {res.dispatches} graph replays ({K} x "
+            f"{cfg.n_layers} each)")
+        log(f"    aggregate {res.tokens_per_s:.2f} tok/s over {res.wall_s:.3f} s "
+            f"wall; p50 decode time per token {statistics.median(step_s) * 1e3:.4f}"
+            f" ms (n={len(step_s)}); mean tick {res.wall_s / res.ticks * 1e3:.4f} ms; "
+            f"host {res.host_dispatch_s:.3f} s dispatching + "
+            f"{res.host_sync_s:.3f} s waiting for tokens")
+        if got != budgets:
+            raise AssertionError(f"{label}: sessions ended short: {got} vs {budgets}")
+        if (res.step_cache_size != 1 or wrapper != 2 * K * cfg.n_layers
+                or captured != K * cfg.n_layers):
+            raise AssertionError(f"{label}: decode step not captured once")
+        if replayed != res.dispatches * K * cfg.n_layers:
+            raise AssertionError(f"{label}: the replays launched the paged "
+                                 f"kernel {replayed} times, want {cfg.n_layers} "
+                                 "per device step")
+        if n_pages is not None and res.preemptions < 1:
+            raise AssertionError(f"{label}: the tight pool preempted no one")
+        p50 = statistics.median(step_s) * 1e3
+        per_step, busy, wall, rows = paged_window(
+            model, engine.params, reqs, max_len, dict(kw, kv_dtype=kv_dtype))
+        log(f"    steady window (4 slots decoding, 3 ticks of {K} device "
+            f"step(s), torch.profiler): {per_step:g} paged-kernel launches per "
+            f"device step; device {busy / K:.4f} ms busy per device step = "
+            f"{busy / K / p50:.1%} of the unprofiled p50 decode time per token "
+            f"({busy / wall:.1%} of the profiled window's own {wall / K:.4f} ms "
+            f"per step); largest per tick:")
+        for t, name, n in sorted(rows, reverse=True)[:6]:
+            log(f"      {t / 1e3 / 3:8.4f} ms  {n / 3:6.1f}x  {name[:90]}")
+        if per_step != cfg.n_layers:
+            raise AssertionError(f"{label}: {per_step} paged-kernel launches per "
+                                 f"device step, want {cfg.n_layers}")
+        with torch.inference_mode():
+            paged_first_step_logits(model, engine.params, reqs, max_len, kv_dtype)
+        del engine
+        torch.cuda.empty_cache()
+    return counts
+
+
 # ---------------------------------------------------------------- main
 PENDING = [
-    dict(name="paged_decode_attention",
-         replaces="src/repro/kernels/paged_decode_attention/"
-                  "paged_decode_attention.py:136",
-         waits_for="paged KV / continuous-batching slice"),
     dict(name="ssd_update", replaces="src/repro/kernels/ssd_update/ssd_update.py:37",
          waits_for="other-families slice (mamba2 / hybrid)"),
     dict(name="rmsnorm", replaces="src/repro/kernels/rmsnorm/rmsnorm.py:24",
@@ -455,11 +830,16 @@ def main() -> int:
     smi, dev = setup()
     timer = Timer(dev)
     rows = [check_decode_attention(dev, timer), check_int4_matmul(dev, timer)]
+    rows += check_paged_decode_attention(dev, timer)
     del timer
     torch.cuda.empty_cache()
     check_f32_tokens(dev)
+    check_f32_paged_tokens(dev)
     da_launches, i4_launches = main_path(dev)
-    rows[0]["launches"], rows[1]["launches"] = da_launches, i4_launches
+    torch.cuda.empty_cache()
+    paged_launches = paged_serving(dev)
+    for row, n in zip(rows, [da_launches, i4_launches] + paged_launches):
+        row["launches"] = n
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     log(json.dumps({"pending_kernels": PENDING}))

@@ -1,0 +1,207 @@
+"""Wrapper for the paged decode-attention kernel
+(``csrc/paged_decode_attention.cu``) and the analytic per-step KV
+traffic accounting of the two paged routes.
+
+Port of ``repro.kernels.paged_decode_attention.ops``.  A CUDA tensor
+launches the kernel, or the wrapper raises; a CPU tensor takes the plain
+version in ``ref.py``.  ``launches`` counts kernel launches (one per
+call that reached the card; a call recorded into a CUDA graph counts
+once, at capture).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.paged_decode_attention import ref
+
+TILE = 32          # tokens per tile inside a block (kTile in the source)
+MAX_SPLIT = 1024   # most partials the merge kernel takes (kMaxSplit)
+G_MAX = 16         # most query heads per KV head (kGMax)
+HEAD_DIMS = (32, 64, 128)
+PAGE_SIZES = (4, 8, 16, 32)
+
+launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("paged_decode_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.paged_decode_attention_launch.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p,
+        i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+    lib.paged_decode_attention_launch.restype = i
+    return lib
+
+
+def split_plan(S: int):
+    """(n_split, chunk) over a virtual span of S tokens: one TILE per
+    block unless that would exceed MAX_SPLIT partials."""
+    chunk = TILE * math.ceil(math.ceil(S / TILE) / MAX_SPLIT)
+    return math.ceil(S / chunk), chunk
+
+
+def _check(q, k_pool, v_pool, block_table, lengths, ks, vs):
+    if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(f"want q (B,Hq,hd), pools (n_pages,page,Hkv,hd); got "
+                         f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)}")
+    B, Hq, hd = q.shape
+    _, page, Hkv, _ = k_pool.shape
+    if k_pool.shape[3] != hd or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match pools "
+                         f"{tuple(k_pool.shape)}")
+    if hd not in HEAD_DIMS or Hq // Hkv > G_MAX or page not in PAGE_SIZES:
+        raise ValueError(f"kernel takes hd in {HEAD_DIMS}, G <= {G_MAX} and "
+                         f"page in {PAGE_SIZES}; got hd={hd}, G={Hq // Hkv}, "
+                         f"page={page}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"q must be bf16 or f32; got {q.dtype}")
+    if ks is None:
+        if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+            raise TypeError(f"pools must share q's dtype {q.dtype}; got "
+                            f"{k_pool.dtype}, {v_pool.dtype}")
+    else:
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+            raise TypeError("with scale pools the pools hold int8 codes")
+        for t in (ks, vs):
+            if t.dtype != torch.float32 or t.shape != k_pool.shape[:3]:
+                raise ValueError(f"scale pools must be f32 {tuple(k_pool.shape[:3])}; "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+    if block_table.dtype != torch.int32 or block_table.dim() != 2 or \
+            block_table.shape[0] != B:
+        raise ValueError(f"block_table must be int32 (B, max_blocks); got "
+                         f"{block_table.dtype} {tuple(block_table.shape)}")
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be int32 (B,); got {lengths.dtype} "
+                         f"{tuple(lengths.shape)}")
+    named = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+             ("block_table", block_table), ("lengths", lengths)]
+    if ks is not None:
+        named += [("k_scale_pool", ks), ("v_scale_pool", vs)]
+    for name, t in named:
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in named[:3]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           lengths: torch.Tensor,
+                           k_scale_pool: Optional[torch.Tensor] = None,
+                           v_scale_pool: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """q (B, Hq, hd); k_pool/v_pool (n_pages, page, Hkv, hd);
+    block_table (B, max_blocks) int32; lengths (B,) int32 -> (B, Hq, hd)
+    in q's dtype.
+
+    Reads each slot's pages in place through the block table.  With
+    scale pools (n_pages, page, Hkv) f32 the pools hold int8 codes and
+    the kernel dequantises ``codes * scale`` in registers.  A slot with
+    ``lengths[b] == 0`` gives zeros."""
+    quant = k_scale_pool is not None
+    if q.device.type == "cpu":
+        if quant:
+            out = ref.paged_decode_attention_quant_ref(
+                q, k_pool, v_pool, k_scale_pool, v_scale_pool, block_table,
+                lengths)
+        else:
+            out = ref.paged_decode_attention_ref(q, k_pool, v_pool,
+                                                 block_table, lengths)
+        return out.to(q.dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged_decode_attention for device {q.device}")
+    _check(q, k_pool, v_pool, block_table, lengths, k_scale_pool, v_scale_pool)
+    B, Hq, hd = q.shape
+    _, page, Hkv, _ = k_pool.shape
+    max_blocks = block_table.shape[1]
+    G = Hq // Hkv
+    n_split, chunk = split_plan(max_blocks * page)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m_part = torch.empty((B, Hkv, n_split, G), **f32)
+    l_part = torch.empty((B, Hkv, n_split, G), **f32)
+    acc_part = torch.empty((B, Hkv, n_split, G, hd), **f32)
+    out = torch.empty_like(q)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.paged_decode_attention_launch(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale_pool.data_ptr() if quant else None,
+            v_scale_pool.data_ptr() if quant else None,
+            block_table.data_ptr(), lengths.data_ptr(), m_part.data_ptr(),
+            l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(), B,
+            max_blocks, page, Hkv, G, hd, n_split, chunk, hd ** -0.5,
+            int(q.dtype == torch.bfloat16), int(quant),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "paged_decode_attention")
+    global launches
+    launches += 1
+    return out
+
+
+def kv_token_bytes(Hkv: int, hd: int, kv_bytes: int,
+                   kv_quant: str = "none") -> int:
+    """Stored bytes per cached token (K + V together).
+
+    ``kv_quant="int8"``: one int8 code per element plus one float32
+    scale per (token, head) for each of K and V."""
+    if kv_quant == "int8":
+        return 2 * Hkv * (hd + 4)
+    return 2 * Hkv * hd * kv_bytes
+
+
+def traffic_bytes(live_blocks: int, page_size: int, Hkv: int, hd: int,
+                  *, n_slots: int, max_blocks: int, n_layers: int = 1,
+                  kv_bytes: int = 2, kv_quant: str = "none") -> dict:
+    """Analytic per-decode-step HBM KV traffic for the two paged routes.
+
+    ``live_blocks`` is the summed ``ceil(live_len/page)`` over slots at
+    that step (what the fused kernel walks).  The gather route is
+    charged per layer for the full virtual view three times: the
+    gather's pool read, the materialised-view write, and the attention's
+    read of that view.  With ``kv_quant="int8"`` the fused kernel reads
+    live pages once at stored width (codes + scales), while the gather
+    route reads the pool at stored width and then writes and re-reads a
+    dequantised model-dtype view of the whole virtual span.  ``floor``
+    is the irreducible per-step KV term: live tokens once at stored
+    width."""
+    stored = kv_token_bytes(Hkv, hd, kv_bytes, kv_quant)
+    model_tok = 2 * Hkv * hd * kv_bytes
+    virtual = n_slots * max_blocks * page_size
+    live = live_blocks * page_size
+    if kv_quant == "none":
+        gather = n_layers * 3 * virtual * model_tok
+    else:
+        gather = n_layers * virtual * (stored + 2 * model_tok)
+    return {
+        "fused": n_layers * live * stored,
+        "gather_sdpa": gather,
+        "floor": n_layers * live * stored,
+    }
+
+
+def serving_traffic_bytes(step_kv_blocks: Sequence[int], cfg, *,
+                          page_size: int, n_slots: int, max_blocks: int,
+                          kv_bytes: Optional[int] = None,
+                          kv_quant: str = "none") -> dict:
+    """Mean per-decode-step KV traffic for both routes from a run's
+    live-block trace (``ContinuousResult.step_kv_blocks``).  ``kv_bytes``
+    defaults to the element size of the model dtype."""
+    if kv_bytes is None:
+        kv_bytes = 4 if cfg.dtype == "float32" else 2
+    mean_blocks = int(round(float(np.mean(np.asarray(step_kv_blocks)))))
+    return traffic_bytes(mean_blocks, page_size, cfg.n_kv_heads,
+                         cfg.head_dim, n_slots=n_slots,
+                         max_blocks=max_blocks, n_layers=cfg.n_layers,
+                         kv_bytes=kv_bytes, kv_quant=kv_quant)

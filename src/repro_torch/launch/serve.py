@@ -6,9 +6,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --reduced --device cpu
 
+plus the continuous-batching multi-session modes (slotted or paged KV
+cache, prefix sharing, int8 KV, horizon-K ticks):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+      --reduced --device cpu --paged --prefix-cache --kv-quant int8 \
+      --slots 3 --sessions 6 --shared-prefix 16 --timed
+
 Runs on the CUDA card unless ``--device cpu`` is given; weights are
-random, drawn on the device from ``--seed``.  Continuous batching, paged
-KV and tracing arrive with their own slices.
+random, drawn on the device from ``--seed``.  Trace replay, the host KV
+tier and fault plans arrive with their own slices.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ from repro_torch.core.hardware import GPU_H100
 from repro_torch.models.attention import DECODE_BACKENDS
 from repro_torch.models.model import Model
 from repro_torch.quant import WEIGHT_PATHS
-from repro_torch.serving import DecodeEngine
+from repro_torch.serving import DecodeEngine, SessionRequest
 
 
 def main(argv=None):
@@ -46,10 +53,53 @@ def main(argv=None):
     ap.add_argument("--timed", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
+                    help="KV cache quantisation: int8 codes + per-(token, "
+                         "head) f32 scales; on --paged the 'cuda' route "
+                         "dequantises inside the paged kernel")
+    # continuous batching (slotted KV cache, multi-session churn)
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve --sessions sessions of mixed prompt/target "
+                         "lengths through --slots cache slots")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--sessions", type=int, default=8)
+    ap.add_argument("--dispatch", default="full_jit", choices=["full_jit"],
+                    help="decode dispatch: the whole step as one captured "
+                         "CUDA graph (eager / per-stage arrive with the "
+                         "dispatch A/B slice)")
+    ap.add_argument("--steps-per-tick", type=int, default=1,
+                    help="horizon K: K decode steps with on-device sampling "
+                         "per dispatch, one token transfer per macro-tick")
+    ap.add_argument("--adaptive-k", action="store_true",
+                    help="pick each macro-tick's horizon from the "
+                         "[1, --steps-per-tick] halving ladder by load")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve out of a paged KV cache: a page pool + "
+                         "per-slot block tables (implies --continuous)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="pool pages incl. the garbage sentinel; below "
+                         "1 + slots*ceil(max_len/page_size) the pool is "
+                         "oversubscribed (default: full backing)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="admit prompts in chunks of this many tokens "
+                         "(multiple of --page-size), between decode ticks")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share page-aligned prompt prefixes across "
+                         "sessions through copy-on-write pages (implies "
+                         "--paged)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many identical tokens to every "
+                         "session's prompt (what --prefix-cache shares)")
     args = ap.parse_args(argv)
     if args.weights:
         args.quant = {"int8": "int8_fused",
                       "int4": "int4_fused"}.get(args.weights, args.weights)
+    if args.prefix_cache:
+        args.paged = True
+    if args.paged:
+        args.continuous = True
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -57,7 +107,11 @@ def main(argv=None):
     model = Model(cfg, decode_backend=args.decode_backend, device=args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init(gen)
-    engine = DecodeEngine(model, params, quant_path=args.quant)
+    engine = DecodeEngine(
+        model, params, quant_path=args.quant,
+        kv_dtype=torch.int8 if args.kv_quant == "int8" else None)
+    if args.continuous:
+        return serve_continuous(engine, cfg, args)
 
     rng = np.random.default_rng(args.seed)
     prompt = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
@@ -85,6 +139,115 @@ def main(argv=None):
               f"floor {fc.t_floor_ms:.4g} ms, R_floor "
               f"{fc.r_floor(p50 / 1e3):.4g}")
     print("first tokens:", res.tokens[0, :12].tolist())
+
+
+def mixed_requests(cfg, n_sessions: int, *, base_prompt: int,
+                   base_new: int, seed: int, shared_prefix: int = 0):
+    """Deterministic session mix: prompt lengths base..~2x base, token
+    budgets base_new..~2x base_new (the reference's length formula),
+    token ids from ``numpy.random.default_rng(seed + 1)``.
+    ``shared_prefix`` prepends that many identical tokens to every
+    prompt (the prefix-sharing workload)."""
+    rng = np.random.default_rng(seed + 1)
+    common = rng.integers(0, cfg.vocab_size, shared_prefix, dtype=np.int32)
+    reqs = []
+    for i in range(n_sessions):
+        plen = base_prompt + (i * 7) % (base_prompt + 1)
+        n_new = base_new + (i * 5) % (base_new + 1)
+        prompt = rng.integers(0, cfg.vocab_size, plen, dtype=np.int32)
+        reqs.append(SessionRequest(f"session{i}",
+                                   np.concatenate([common, prompt]), n_new))
+    return reqs
+
+
+def serve_continuous(engine: DecodeEngine, cfg, args):
+    reqs = mixed_requests(cfg, args.sessions, base_prompt=args.prompt_len,
+                          base_new=args.new_tokens, seed=args.seed,
+                          shared_prefix=args.shared_prefix)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 1
+    res = engine.generate_continuous(
+        reqs, n_slots=args.slots, max_len=max_len,
+        temperature=args.temperature, seed=args.seed,
+        dispatch_mode=args.dispatch, paged=args.paged,
+        page_size=args.page_size, n_pages=args.pages,
+        prefill_chunk=args.prefill_chunk,
+        steps_per_tick=args.steps_per_tick, timed=args.timed,
+        prefix_cache=args.prefix_cache, adaptive_k=args.adaptive_k)
+    n_tok = sum(len(s.tokens) for s in res.sessions.values())
+    layout = "paged" if args.paged else "contiguous"
+    backend = engine.model.decode_backend
+    dev = engine.model.device
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"served {len(res.sessions)} sessions through {args.slots} slots "
+          f"({args.dispatch}, {layout}, attn={backend}) on {where}: {n_tok} "
+          f"tokens in {res.ticks} ticks / {res.dispatches} decode "
+          f"dispatches, {res.tokens_per_s:.1f} tok/s aggregate")
+    if args.steps_per_tick > 1:
+        dec_tok = n_tok - len(res.sessions)   # first tokens come from prefill
+        hist = " ".join(f"K{k}:{v}" for k, v in sorted(res.horizon_hist.items()))
+        print(f"horizon-K: steps_per_tick={args.steps_per_tick}, "
+              f"{dec_tok / max(res.dispatches, 1):.1f} tokens per dispatch "
+              f"({hist}), host dispatch {res.host_dispatch_s * 1e3:.1f} ms + "
+              f"sync {res.host_sync_s * 1e3:.1f} ms over the run")
+    if args.paged:
+        from repro_torch.kernels.paged_decode_attention.ops import (
+            serving_traffic_bytes)
+        max_blocks = -(-max_len // args.page_size)
+        full = 1 + args.slots * max_blocks
+        pages = args.pages or full
+        print(f"paged: page_size={args.page_size} pages={pages} "
+              f"(full backing {full}, "
+              f"oversubscription x{(full - 1) / max(pages - 1, 1):.2f}), "
+              f"preemptions={res.preemptions}")
+        if args.prefix_cache:
+            # denominator = prefill work this run would have dispatched
+            # without sharing (saved + dispatched)
+            total = res.prefix_tokens_saved + res.prefill_tokens
+            print(f"prefix cache: {res.prefix_hits} admission hits "
+                  f"({len(reqs)} sessions), prefill tokens "
+                  f"{res.prefill_tokens} dispatched / "
+                  f"{res.prefix_tokens_saved} shared "
+                  f"({res.prefix_tokens_saved / max(total, 1):.0%} of "
+                  f"prefill work skipped), "
+                  f"{res.cow_copies} CoW page cop"
+                  f"{'y' if res.cow_copies == 1 else 'ies'}")
+        if res.step_kv_blocks:
+            tb = serving_traffic_bytes(res.step_kv_blocks, cfg,
+                                       page_size=args.page_size,
+                                       n_slots=args.slots,
+                                       max_blocks=max_blocks,
+                                       kv_quant=args.kv_quant)
+            route = "fused-in-place" if backend == "cuda" else "gather+sdpa"
+            moved = tb["fused"] if backend == "cuda" else tb["gather_sdpa"]
+            quant_note = (f", kv_quant={args.kv_quant} "
+                          f"floor {tb['floor'] / 1024:.1f} KiB"
+                          if args.kv_quant != "none" else "")
+            print(f"per-step KV traffic ({route}): {moved / 1024:.1f} KiB "
+                  f"(fused would move {tb['fused'] / 1024:.1f}, gather "
+                  f"{tb['gather_sdpa'] / 1024:.1f}{quant_note})")
+    if args.quant != "bf16" or args.kv_quant != "none":
+        from repro_torch.quant import tree_weight_traffic
+        wb = tree_weight_traffic(engine.params)
+        print(f"quantised serving: weights={args.quant} "
+              f"kv={args.kv_quant}; per-step weight stream "
+              f"{wb / 1024:.1f} KiB")
+    captured = (f"captured as {res.step_cache_size} CUDA graph(s)"
+                if res.step_cache_size is not None else
+                "run as plain calls (no graph capture on the CPU)")
+    print(f"decode step {captured}, {res.launches_per_step} host launch(es) "
+          f"per step")
+    if args.timed:
+        for sid, s in res.sessions.items():
+            if not s.step_times_s:
+                continue
+            p50 = float(np.median(s.step_times_s)) * 1e3
+            p95 = float(np.percentile(s.step_times_s, 95)) * 1e3
+            print(f"  {sid}: {len(s.tokens)} tokens, slot {s.slot}, "
+                  f"ticks {s.admitted_tick}-{s.finished_tick}, "
+                  f"step p50 {p50:.2f} ms p95 {p95:.2f} ms")
+    first = next(iter(res.sessions.values()))
+    print("first session tokens:", first.tokens[:12].tolist())
+    return res
 
 
 if __name__ == "__main__":

@@ -1,18 +1,25 @@
 """GQA attention: full-sequence (prefill) and cached decode with
 selectable backends (the paper's §6 attention-backend matrix).
 
-Port of ``repro.models.attention``, contiguous caches only.  Backends for
-the decode step:
+Port of ``repro.models.attention``: contiguous, slotted and paged
+caches, each with bf16/f32 or int8 KV.  Backends for the decode step:
   sdpa     — einsum + softmax written in torch (the reference's own
-             fused-softmax route; not ``F.scaled_dot_product_attention``)
+             fused-softmax route; not ``F.scaled_dot_product_attention``);
+             on an int8 contiguous cache it folds the scales into the
+             scores and probabilities
   math     — explicitly decomposed softmax (the paper's MATH fallback)
   split_kv — flash-decoding style partitioned KV with partial-softmax
              combine
-  cuda     — the hand-written decode-attention kernel
-             (kernels/decode_attention); on a CPU tensor its plain version
+  cuda     — the hand-written kernels: decode attention over a
+             contiguous cache (kernels/decode_attention) and, on a paged
+             cache, paged decode attention reading pages in place
+             (kernels/paged_decode_attention); on a CPU tensor their
+             plain versions.  Every other backend runs over the
+             gathered ``paged_view`` of a paged cache.
 
-Unlike the reference, which returns new arrays, the decode path writes
-the new K/V row into the cache tensors **in place**.
+Unlike the reference, which returns new arrays, the decode and paged
+prefill paths write the new K/V rows (and int8 scales) into the cache
+tensors **in place**.
 """
 from __future__ import annotations
 
@@ -171,6 +178,9 @@ def _kv_write(dst: torch.Tensor, new: torch.Tensor, write_pos: torch.Tensor,
     new = new.to(dst.dtype)
     if write_pos.dim() == 0:
         return dst.index_copy_(1, write_pos.reshape(1).long(), new)
+    # a free slot's position keeps advancing under K=1 stepping; clamp it
+    # into the row as the reference's dynamic_update_slice does
+    write_pos = write_pos.clamp(max=dst.shape[1] - 1)
     lanes = torch.arange(dst.shape[0], device=dst.device)
     row = new[:, 0]
     if active is not None:
@@ -189,12 +199,20 @@ def _bmask(mask: torch.Tensor, B: int) -> torch.Tensor:
     return mask[None, :].expand(B, mask.shape[0])
 
 
-def _sdpa_decode(q, k_cache, v_cache, mask, cfg):
-    """``mask`` is (S,) shared or (B, S) per-slot."""
+def _sdpa_decode(q, k_cache, v_cache, mask, cfg, k_scale=None, v_scale=None):
+    """k_scale/v_scale (B,S,Hkv): int8-KV path.  The per-token scales are
+    constant over head_dim, so they fold into the score and probability
+    tensors exactly: no dequantised K/V copy is made.
+
+    ``mask`` is (S,) shared or (B, S) per-slot."""
     mask = _bmask(mask, q.shape[0])
     scores = _gqa_scores(q, k_cache.to(q.dtype), cfg)       # (B,K,G,1,S)
+    if k_scale is not None:
+        scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     scores = torch.where(mask[:, None, None, None, :], scores, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.permute(0, 2, 1)[:, :, None, None, :]
     return _gqa_out(probs, v_cache.to(q.dtype), cfg)
 
 
@@ -246,14 +264,42 @@ def _split_kv_decode(q, k_cache, v_cache, mask, cfg, n_partitions: int = 8):
 
 
 def _decode_attend(q, k_read, v_read, mask, cfg: ArchConfig, backend: str,
-                   out_dtype, paged=None) -> torch.Tensor:
+                   out_dtype, k_scale=None, v_scale=None,
+                   paged=None) -> torch.Tensor:
     """Run the selected decode backend over an (already updated) K/V view.
-    This is the ONE place backend routing happens."""
+    This is the ONE place backend routing happens.
+
+    ``paged`` is the ``(k_pool, v_pool, block_table, lengths)`` tuple of
+    a paged cache (``k_read``/``v_read`` are None then), or the 6-tuple
+    ``(..., k_scale_pool, v_scale_pool)`` of an int8 pool: ``cuda`` runs
+    the paged kernel, which reads pages in place through the block table
+    and dequantises int8 codes in registers; every other backend runs
+    over the gathered ``paged_view`` (a dequantised model-dtype view of
+    an int8 pool)."""
     if paged is not None:
-        raise NotImplementedError(
-            "paged KV caches arrive with the paged / continuous-batching slice")
+        k_pool, v_pool, block_table, lengths = paged[:4]
+        ks_pool, vs_pool = paged[4:] if len(paged) == 6 else (None, None)
+        if backend == "cuda":
+            from repro_torch.kernels.paged_decode_attention import ops as pda_ops
+            B = q.shape[0]
+            o = pda_ops.paged_decode_attention(q[:, 0], k_pool, v_pool,
+                                               block_table, lengths,
+                                               ks_pool, vs_pool)
+            return o.reshape(B, 1, cfg.n_heads * cfg.head_dim).to(out_dtype)
+        if ks_pool is not None:
+            from repro_torch.quant import kv as kvq
+            k_read = kvq.dequantize_kv(paged_view(k_pool, block_table),
+                                       paged_view(ks_pool, block_table),
+                                       out_dtype)
+            v_read = kvq.dequantize_kv(paged_view(v_pool, block_table),
+                                       paged_view(vs_pool, block_table),
+                                       out_dtype)
+        else:
+            k_read = paged_view(k_pool, block_table)
+            v_read = paged_view(v_pool, block_table)
     if backend == "sdpa":
-        return _sdpa_decode(q, k_read, v_read, mask, cfg).to(out_dtype)
+        return _sdpa_decode(q, k_read, v_read, mask, cfg,
+                            k_scale=k_scale, v_scale=v_scale).to(out_dtype)
     if backend == "math":
         return _math_decode(q, k_read, v_read, mask, cfg).to(out_dtype)
     if backend == "split_kv":
@@ -270,24 +316,160 @@ def attention_decode(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, write_pos: torch.Tensor,
                      mask: torch.Tensor, angles: torch.Tensor, cfg: ArchConfig,
                      apply_rope_fn, backend: str = "sdpa",
-                     k_scale=None, v_scale=None, active=None):
+                     k_scale=None, v_scale=None, active=None) -> torch.Tensor:
     """One-token decode.  x (B,1,D); cache (B,S_max,Hkv,hd).
 
     ``write_pos`` is the cache slot for the new K/V (== absolute pos for a
     full cache, pos % window for a ring cache), a 0-dim tensor for a
     static batch or (B,) for per-slot positions; ``mask`` (S_max,) or
-    (B,S_max) marks valid slots (see ``decode_mask``).  The new K/V row
-    is written into ``k_cache``/``v_cache`` in place.
-
-    Returns (out, k_cache, v_cache) — the same cache tensors."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError("int8 KV caches arrive with the int8-KV "
-                                  "quantisation slice")
+    (B,S_max) marks valid slots (see ``decode_mask``).  k_scale/v_scale
+    (B,S_max,Hkv) select the int8 cache (``repro_torch.quant.kv``).
+    ``active`` (B,) bool makes inactive lanes' writes no-ops.  The new
+    K/V row (codes and scales on int8) is written into the cache tensors
+    in place.  Returns the attention output (B,1,D)."""
+    from repro_torch.quant import kv as kvq
     from repro_torch.quant.paths import matmul
     q, k_new, v_new = _project_qkv(p, x, cfg)
     q = apply_rope_fn(q, angles)
     k_new = apply_rope_fn(k_new, angles)
-    _kv_write(k_cache, k_new, write_pos, active)
-    _kv_write(v_cache, v_new, write_pos, active)
-    out = _decode_attend(q, k_cache, v_cache, mask, cfg, backend, x.dtype)
-    return matmul(out, p["wo"]), k_cache, v_cache
+    quantized = k_scale is not None
+    if quantized:
+        kq, ks = kvq.quantize_kv_write(k_new)
+        vq, vs = kvq.quantize_kv_write(v_new)
+        _kv_write(k_cache, kq, write_pos, active)
+        _kv_write(v_cache, vq, write_pos, active)
+        _kv_write(k_scale, ks, write_pos, active)
+        _kv_write(v_scale, vs, write_pos, active)
+        k_read, v_read = k_cache, v_cache    # sdpa folds scales; others
+        if backend != "sdpa":                # take a dequantised view
+            k_read = kvq.dequantize_kv(k_cache, k_scale, x.dtype)
+            v_read = kvq.dequantize_kv(v_cache, v_scale, x.dtype)
+    else:
+        _kv_write(k_cache, k_new, write_pos, active)
+        _kv_write(v_cache, v_new, write_pos, active)
+        k_read, v_read = k_cache, v_cache
+    out = _decode_attend(q, k_read, v_read, mask, cfg, backend, x.dtype,
+                         k_scale=k_scale if quantized else None,
+                         v_scale=v_scale if quantized else None)
+    return matmul(out, p["wo"])
+
+
+# --------------------------------------------------------------------------
+# paged decode (slot -> block-table -> page-pool indirection)
+# --------------------------------------------------------------------------
+
+def paged_view(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Gather a slot-major contiguous view out of a page pool: pool
+    (n_pages, page_size, ...) and block_table (B, max_blocks) ->
+    (B, max_blocks * page_size, ...)."""
+    B, max_blocks = block_table.shape
+    pages = pool[block_table.long()]
+    return pages.reshape(B, max_blocks * pool.shape[1], *pool.shape[2:])
+
+
+def attention_decode_paged(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           pos: torch.Tensor, mask: torch.Tensor,
+                           angles: torch.Tensor, cfg: ArchConfig,
+                           apply_rope_fn, backend: str = "sdpa",
+                           active=None, k_scale_pool=None,
+                           v_scale_pool=None) -> torch.Tensor:
+    """One-token decode through a paged KV cache.
+
+    x (B,1,D); k_pool/v_pool (n_pages, page_size, Hkv, hd); block_table
+    (B, max_blocks); pos (B,) absolute per-slot positions.  The new K/V
+    row is written in place into the slot's current page
+    (``block_table[b, pos[b] // page_size]`` at offset
+    ``pos[b] % page_size``); ``active`` (B,) bool redirects inactive
+    lanes' writes to the garbage page 0.  Lanes whose block-table row
+    points at page 0 (free or mid-prefill slots) write there and read
+    finite junk that the scheduler discards.  k_scale_pool/v_scale_pool
+    (n_pages, page_size, Hkv) select the int8 pool: the row is quantised
+    on write, codes and scales at the same page and offset.  ``mask`` is
+    the (B, max_blocks*page_size) valid-slot mask the gather routes use;
+    a slot's live length is pos+1.  Returns the attention output
+    (B,1,D)."""
+    from repro_torch.quant.paths import matmul
+    q, k_new, v_new = _project_qkv(p, x, cfg)
+    q = apply_rope_fn(q, angles)
+    k_new = apply_rope_fn(k_new, angles)
+    page_size = k_pool.shape[1]
+    blk = (pos // page_size).clamp(max=block_table.shape[1] - 1)
+    page = block_table.gather(1, blk[:, None].long())[:, 0]
+    if active is not None:
+        page = torch.where(active, page, 0)   # 0 = reserved garbage page
+    page, off = page.long(), (pos % page_size).long()
+    quantized = k_scale_pool is not None
+    if quantized:
+        from repro_torch.quant import kv as kvq
+        k_new, ks = kvq.quantize_kv_write(k_new)
+        v_new, vs = kvq.quantize_kv_write(v_new)
+        k_scale_pool[page, off] = ks[:, 0]
+        v_scale_pool[page, off] = vs[:, 0]
+    k_pool[page, off] = k_new[:, 0].to(k_pool.dtype)
+    v_pool[page, off] = v_new[:, 0].to(v_pool.dtype)
+    paged = (k_pool, v_pool, block_table, pos + 1)
+    if quantized:
+        paged = paged + (k_scale_pool, v_scale_pool)
+    out = _decode_attend(q, None, None, mask, cfg, backend, x.dtype,
+                         paged=paged)
+    return matmul(out, p["wo"])
+
+
+def attention_prefill_paged(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, slot_pages: torch.Tensor,
+                            start_pos: int, angles: torch.Tensor,
+                            cfg: ArchConfig, apply_rope_fn,
+                            k_scale_pool=None, v_scale_pool=None
+                            ) -> torch.Tensor:
+    """Prefill one chunk of ONE session through the paged cache.
+
+    x (1, C, D) is the chunk's hidden states; ``slot_pages``
+    (max_blocks,) is the session's block-table row; ``start_pos`` is the
+    page-aligned absolute position of chunk token 0.  The chunk's K/V
+    (int8 codes and scales with scale pools) are written in place into
+    the slot's pages, then the chunk attends causally over the cached
+    prefix plus itself through the gathered view — exact math, so
+    chunked prefill is token-identical to whole-prompt prefill.  Returns
+    the attention output (1, C, D)."""
+    from repro_torch.quant import kv as kvq
+    from repro_torch.quant.paths import matmul
+    _, C, _ = x.shape
+    page_size = k_pool.shape[1]
+    q, k_new, v_new = _project_qkv(p, x, cfg)
+    q = apply_rope_fn(q, angles)
+    k_new = apply_rope_fn(k_new, angles)
+    n_chunk_pages = -(-C // page_size)
+    pad = n_chunk_pages * page_size - C
+
+    def to_pages(t, dtype):   # (1, C, ...) -> (n_pages_c, page, ...)
+        t = torch.cat([t[0], t.new_zeros((pad,) + t.shape[2:])]) if pad else t[0]
+        return t.reshape((n_chunk_pages, page_size) + t.shape[1:]).to(dtype)
+
+    first = start_pos // page_size
+    idx = slot_pages[first:first + n_chunk_pages].long()
+    quantized = k_scale_pool is not None
+    if quantized:
+        k_new, ks = kvq.quantize_kv_write(k_new)
+        v_new, vs = kvq.quantize_kv_write(v_new)
+        k_scale_pool.index_copy_(0, idx, to_pages(ks, torch.float32))
+        v_scale_pool.index_copy_(0, idx, to_pages(vs, torch.float32))
+    k_pool.index_copy_(0, idx, to_pages(k_new, k_pool.dtype))
+    v_pool.index_copy_(0, idx, to_pages(v_new, v_pool.dtype))
+    table = slot_pages[None, :]
+    if quantized:
+        k_view = kvq.dequantize_kv(paged_view(k_pool, table),
+                                   paged_view(k_scale_pool, table), x.dtype)
+        v_view = kvq.dequantize_kv(paged_view(v_pool, table),
+                                   paged_view(v_scale_pool, table), x.dtype)
+    else:
+        k_view = paged_view(k_pool, table)
+        v_view = paged_view(v_pool, table)
+    virtual = k_view.shape[1]
+    qpos = start_pos + torch.arange(C, device=x.device)
+    mask = torch.arange(virtual, device=x.device)[None, :] <= qpos[:, None]
+    scores = _gqa_scores(q, k_view.to(q.dtype), cfg)        # (1,K,G,C,virt)
+    scores = torch.where(mask[None, None, None], scores, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = _gqa_out(probs, v_view.to(q.dtype), cfg).to(x.dtype)
+    return matmul(out, p["wo"])

@@ -5,17 +5,19 @@ Port of ``repro.models.model`` with the same API, params passed in:
     m = Model(cfg, device="cuda")
     params = m.init(torch.Generator(device="cuda").manual_seed(0))
     logits, aux = m.forward(params, batch)
-    cache = m.init_cache(batch_size, max_len)
-    logits, cache = m.prefill(params, batch, cache)
+    cache = m.init_cache(batch_size, max_len)        # or slotted / paged,
+    logits, cache = m.prefill(params, batch, cache)  # int8 KV
     logits, cache = m.decode_step(params, cache, tokens)
 
 Params are a dict with the reference's keys (``embed``, ``blocks``,
 ``final_norm``, ``lm_head``); ``blocks`` is a Python list of per-layer
 dicts where the reference stacks layers on a leading L axis.  Caches are
-preallocated and updated **in place**: ``prefill`` and ``decode_step``
-write into the cache they are given and return that same dict, and the
-position ``pos`` is a 0-dim device tensor advanced in place, so a decode
-step reads nothing back to the host and can replay at fixed addresses.
+preallocated and updated **in place**: ``prefill``, the per-slot
+prefills, ``copy_kv_page`` and ``decode_step`` write into the cache they
+are given and return that same dict, and the position ``pos`` (a 0-dim
+device tensor, or a (B,) vector on slotted and paged caches) is advanced
+in place, so a decode step reads nothing back to the host and can replay
+as a CUDA graph at fixed addresses.
 """
 from __future__ import annotations
 
@@ -135,33 +137,94 @@ class Model:
     # ------------------------------------------------------------------
     # caches
     # ------------------------------------------------------------------
-    def init_cache(self, batch_size: int, max_len: int, slotted: bool = False,
-                   paged: bool = False, kv_quant: Optional[str] = None) -> Cache:
-        """Contiguous static-batch KV cache on the model's device, in the
-        model's dtype: ``k``/``v`` (L, B, kv_len, Hkv, hd), zeros, and
-        ``pos`` a 0-dim int32 tensor.  With a sliding window
-        kv_len = min(max_len, window) and the cache is a ring."""
+    def init_cache(self, batch_size: int, max_len: int, kv_dtype=None,
+                   slotted: bool = False, paged: bool = False,
+                   page_size: int = 16, n_pages: Optional[int] = None
+                   ) -> Cache:
+        """KV cache on the model's device, zeros.
+
+        Contiguous: ``k``/``v`` (L, B, kv_len, Hkv, hd) with ``pos`` a
+        0-dim int32 tensor; with a sliding window kv_len = min(max_len,
+        window) and the cache is a ring.  ``slotted=True`` makes ``pos``
+        a (B,) vector of per-slot positions (continuous batching: each
+        row is an independent session slot).
+
+        ``paged=True`` (implies slotted) replaces the per-slot rows with
+        a page pool plus a per-slot block table: ``k``/``v`` (L, n_pages,
+        page_size, Hkv, hd) and ``block_table`` (B, max_blocks) int32.
+        Page 0 is the garbage sentinel (never allocated; free lanes point
+        at it).  ``n_pages`` defaults to full backing, 1 + B *
+        max_blocks; fewer oversubscribes the pool.
+
+        ``kv_dtype`` defaults to the model dtype; ``torch.int8`` stores
+        int8 codes plus per-(token, head) f32 scales ``k_scale`` /
+        ``v_scale``, shaped like ``k`` without head_dim; on a paged cache
+        they share the block table."""
         cfg = self.cfg
-        if slotted or paged:
-            raise NotImplementedError(
-                "slotted and paged caches arrive with the paged / "
-                "continuous-batching slice")
-        if kv_quant not in (None, "none"):
-            raise NotImplementedError("int8 KV caches arrive with the int8-KV "
-                                      "quantisation slice")
-        kv_len = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-        shape = (cfg.n_layers, batch_size, kv_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
+        kv_dtype = kv_dtype or self.dtype
+        dev = self.device
+        if paged:
+            if cfg.sliding_window:
+                raise NotImplementedError(
+                    "paged KV + sliding-window (ring) caches not supported")
+            if page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            max_blocks = -(-max_len // page_size)
+            if n_pages is None:
+                n_pages = 1 + batch_size * max_blocks   # full backing
+            if n_pages < 2:
+                raise ValueError("need the garbage page plus >= 1 real page")
+            shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
+                     cfg.head_dim)
+            cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+                     "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
+                     "pos": torch.zeros((batch_size,), dtype=torch.int32,
+                                        device=dev),
+                     "block_table": torch.zeros((batch_size, max_blocks),
+                                                dtype=torch.int32, device=dev)}
+        else:
+            kv_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+                      else max_len)
+            shape = (cfg.n_layers, batch_size, kv_len, cfg.n_kv_heads,
+                     cfg.head_dim)
+            pos_shape = (batch_size,) if slotted else ()
+            cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+                     "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
+                     "pos": torch.zeros(pos_shape, dtype=torch.int32,
+                                        device=dev)}
+        if kv_dtype == torch.int8:
+            cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=dev)
+            cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                           device=dev)
+        return cache
+
+    @staticmethod
+    def _page_slab_keys(cache: Cache) -> Tuple[str, ...]:
+        """Cache keys indexed (L, n_pages, ...) — everything a page id
+        addresses.  Quantised pools carry scale slabs alongside codes."""
+        if "k_scale" in cache:
+            return ("k", "v", "k_scale", "v_scale")
+        return ("k", "v")
+
+    def copy_kv_page(self, cache: Cache, src: int, dst: int) -> Cache:
+        """Copy one pool page — every layer's K and V rows, and scales —
+        onto another, in place: the copy-on-write fault of prefix
+        sharing.  Returns the same cache."""
+        if "block_table" not in cache:
+            raise ValueError("copy_kv_page targets paged caches")
+        for key in self._page_slab_keys(cache):
+            cache[key][:, dst].copy_(cache[key][:, src])
+        return cache
 
     # ------------------------------------------------------------------
     # prefill
     # ------------------------------------------------------------------
     def prefill(self, params: Params, batch: Dict, cache: Cache
                 ) -> Tuple[torch.Tensor, Cache]:
-        """Populate the cache from a full prompt, in place; returns the
-        last-position logits and the same cache."""
+        """Populate a contiguous cache from a full prompt, in place;
+        returns the last-position logits and the same cache."""
+        from repro_torch.quant import kv as kvq
         x, _, kvs = self.backbone(params, batch, collect_cache=True)
         S = x.shape[1]
 
@@ -176,31 +239,112 @@ class Model:
                 kept = torch.roll(kept, S % kv_len, dims=1)
             dst[:, :s_eff].copy_(kept)
 
+        quantized = "k_scale" in cache
         for i, (k, v) in enumerate(kvs):
-            place(k, cache["k"][i])
-            place(v, cache["v"][i])
+            if quantized:
+                (kq, ks), (vq, vs) = kvq.quantize_kv_write(k), kvq.quantize_kv_write(v)
+                place(kq, cache["k"][i])
+                place(vq, cache["v"][i])
+                place(ks, cache["k_scale"][i])
+                place(vs, cache["v_scale"][i])
+            else:
+                place(k, cache["k"][i])
+                place(v, cache["v"][i])
         cache["pos"].fill_(S)
         x_last = apply_norm(x[:, -1:], params["final_norm"])
         return self.lm_logits(params, x_last), cache
 
-    def prefill_into_slot(self, *args, **kwargs):
-        raise NotImplementedError("prefill_into_slot arrives with the paged / "
-                                  "continuous-batching slice")
+    def prefill_into_slot(self, params: Params, batch: Dict, cache: Cache,
+                          slot: int) -> Tuple[torch.Tensor, Cache]:
+        """Prefill ONE session (batch-1 prompt) into one slot of a slotted
+        cache, in place: K/V land at positions 0..S-1 of the slot's row
+        and ``pos[slot] = S``.  Stale K/V past S from an earlier occupant
+        stay masked out by the per-slot length mask until overwritten.
+        A paged cache takes the whole prompt as one chunk.  Returns the
+        last-position logits (1, 1, V) and the same cache."""
+        from repro_torch.quant import kv as kvq
+        if "block_table" in cache:
+            return self.prefill_chunk_into_slot(params, batch, cache, slot, 0)
+        n, S = batch["tokens"].shape
+        if n != 1 or S > cache["k"].shape[2]:
+            raise ValueError(f"prefill_into_slot takes a batch-1 prompt of at "
+                             f"most {cache['k'].shape[2]} tokens; got {(n, S)}")
+        x, _, kvs = self.backbone(params, batch, collect_cache=True)
+        for i, (k, v) in enumerate(kvs):
+            if "k_scale" in cache:
+                k, ks = kvq.quantize_kv_write(k)
+                v, vs = kvq.quantize_kv_write(v)
+                cache["k_scale"][i, slot, :S].copy_(ks[0])
+                cache["v_scale"][i, slot, :S].copy_(vs[0])
+            cache["k"][i, slot, :S].copy_(k[0])
+            cache["v"][i, slot, :S].copy_(v[0])
+        cache["pos"][slot] = S
+        x_last = apply_norm(x[:, -1:], params["final_norm"])
+        return self.lm_logits(params, x_last), cache
 
-    def prefill_chunk_into_slot(self, *args, **kwargs):
-        raise NotImplementedError("prefill_chunk_into_slot arrives with the "
-                                  "paged / continuous-batching slice")
+    def prefill_chunk_into_slot(self, params: Params, batch: Dict,
+                                cache: Cache, slot: int, start_pos: int
+                                ) -> Tuple[torch.Tensor, Cache]:
+        """Prefill one CHUNK of a session's prompt into a paged cache, in
+        place.  ``batch["tokens"]`` is (1, C): chunk tokens at absolute
+        positions ``start_pos .. start_pos + C - 1``; ``start_pos`` must
+        be page-aligned.  The chunk attends over the session's cached
+        prefix plus itself (exact math, see ``attention_prefill_paged``),
+        so a prompt fed chunk by chunk is token-identical to one whole
+        prefill.  Sets ``pos[slot] = start_pos + C``; returns the chunk's
+        last-position logits (1, 1, V) and the same cache."""
+        cfg = self.cfg
+        if "block_table" not in cache:
+            raise ValueError("prefill_chunk_into_slot needs a paged cache")
+        tokens = batch["tokens"]
+        if tokens.shape[0] != 1:
+            raise ValueError("chunk prefill takes one session")
+        page_size = cache["k"].shape[2]
+        if start_pos % page_size:
+            raise ValueError(f"start_pos {start_pos} is not page-aligned")
+        x = self.embed_tokens(params, tokens)
+        C = x.shape[1]
+        positions = start_pos + torch.arange(C, device=x.device)[None, :]
+        angles = self.angle_fn(positions)
+        slot_pages = cache["block_table"][slot]
+        quantized = "k_scale" in cache
+        for i, bp in enumerate(params["blocks"]):
+            a_out = attn.attention_prefill_paged(
+                bp["attn"], apply_norm(x, bp["norm1"]), cache["k"][i],
+                cache["v"][i], slot_pages, start_pos, angles, cfg, apply_rope,
+                k_scale_pool=cache["k_scale"][i] if quantized else None,
+                v_scale_pool=cache["v_scale"][i] if quantized else None)
+            x = x + a_out
+            x = x + mlp_forward(bp["mlp"], apply_norm(x, bp["norm2"]),
+                                cfg.mlp_gated)
+        cache["pos"][slot] = start_pos + C
+        x_last = apply_norm(x[:, -1:], params["final_norm"])
+        return self.lm_logits(params, x_last), cache
 
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
     def _attn_block_decode(self, bp, x, k_cache, v_cache, write_pos, mask,
-                           angles, backend=None):
+                           angles, k_scale=None, v_scale=None, active=None):
         cfg = self.cfg
-        a_out, _, _ = attn.attention_decode(
+        a_out = attn.attention_decode(
             bp["attn"], apply_norm(x, bp["norm1"]), k_cache, v_cache,
             write_pos, mask, angles, cfg, apply_rope,
-            backend=backend or self.decode_backend)
+            backend=self.decode_backend, k_scale=k_scale, v_scale=v_scale,
+            active=active)
+        x = x + a_out
+        h = apply_norm(x, bp["norm2"])
+        return x + mlp_forward(bp["mlp"], h, cfg.mlp_gated)
+
+    def _attn_block_decode_paged(self, bp, x, k_pool, v_pool, block_table,
+                                 pos, mask, angles, active=None,
+                                 k_scale_pool=None, v_scale_pool=None):
+        cfg = self.cfg
+        a_out = attn.attention_decode_paged(
+            bp["attn"], apply_norm(x, bp["norm1"]), k_pool, v_pool,
+            block_table, pos, mask, angles, cfg, apply_rope,
+            backend=self.decode_backend, active=active,
+            k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
         x = x + a_out
         h = apply_norm(x, bp["norm2"])
         return x + mlp_forward(bp["mlp"], h, cfg.mlp_gated)
@@ -212,26 +356,52 @@ class Model:
         """One new token per sequence.  tokens (B,1).
 
         Writes each layer's new K/V row into the cache and advances
-        ``cache["pos"]`` by one, all in place; returns (logits (B,1,V),
-        the same cache).  The mask and the write slot are computed on the
-        device from ``pos``: the step reads nothing back to the host."""
+        ``cache["pos"]``, all in place; returns (logits (B,1,V), the same
+        cache).  On a slotted cache every sequence advances at its own
+        position; on a paged cache the row goes through the block table
+        and the model's ``decode_backend`` picks the route (``"cuda"``:
+        the paged kernel reading pages in place; anything else: the
+        gathered view).  ``active`` (B,) bool (slotted caches only)
+        turns inactive lanes into no-ops: their K/V write is clamped
+        (contiguous: the old row is rewritten; paged: redirected to the
+        garbage page) and their position does not advance.  The mask and
+        the write slot are computed on the device from ``pos``: the step
+        reads nothing back to the host."""
         cfg = self.cfg
-        if active is not None or cache["pos"].dim():
-            raise NotImplementedError(
-                "per-slot positions and active-lane masking arrive with the "
-                "paged / continuous-batching slice")
+        pos = cache["pos"]
+        slotted = pos.dim() == 1
+        paged = "block_table" in cache
+        if active is not None and not slotted:
+            raise NotImplementedError("active-lane masking targets slotted "
+                                      "caches")
         x = self.embed_tokens(params, tokens)
         B = x.shape[0]
-        pos = cache["pos"]
-        kv_len = cache["k"].shape[2]
-        ring = bool(cfg.sliding_window) and kv_len <= cfg.sliding_window
-        write_pos = pos % kv_len if ring else pos
+        if paged:
+            kv_len = cache["block_table"].shape[1] * cache["k"].shape[2]
+            ring, write_pos = False, pos
+        else:
+            kv_len = cache["k"].shape[2]
+            ring = bool(cfg.sliding_window) and kv_len <= cfg.sliding_window
+            write_pos = pos % kv_len if ring else pos
         mask = attn.decode_mask(pos, kv_len, ring=ring)
-        angles = self.angle_fn(pos.reshape(1, 1).expand(B, 1))
+        positions = pos[:, None] if slotted else pos.reshape(1, 1).expand(B, 1)
+        angles = self.angle_fn(positions)
+        quantized = "k_scale" in cache
         for i, bp in enumerate(params["blocks"]):
-            x = self._attn_block_decode(bp, x, cache["k"][i], cache["v"][i],
-                                        write_pos, mask, angles)
-        pos.add_(1)
+            scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quantized
+                      else (None, None))
+            if paged:
+                x = self._attn_block_decode_paged(
+                    bp, x, cache["k"][i], cache["v"][i], cache["block_table"],
+                    pos, mask, angles, active, *scales)
+            else:
+                x = self._attn_block_decode(bp, x, cache["k"][i], cache["v"][i],
+                                            write_pos, mask, angles, *scales,
+                                            active=active)
+        if active is None:
+            pos.add_(1)
+        else:
+            pos.add_(active.to(pos.dtype))
         x = apply_norm(x, params["final_norm"])
         return self.lm_logits(params, x), cache
 
@@ -242,21 +412,33 @@ class Model:
                      horizon: int, temperature: float = 0.0, top_k: int = 0,
                      eos_id: Optional[int] = None
                      ) -> Tuple[torch.Tensor, Cache]:
-        """Advance every sequence ``horizon`` tokens with on-device sampling
-        (greedy argmax, or categorical draws from ``gen``), returning the
-        token matrix (B, horizon) without reading anything back to the
-        host.  Greedy streams are token-identical to ``horizon`` single
-        ``decode_step`` calls."""
+        """Advance every sequence up to ``horizon`` tokens with on-device
+        sampling (greedy argmax, or categorical draws from ``gen``),
+        returning the token matrix (B, horizon) without reading anything
+        back to the host.
+
+        ``steps_left`` (B,) int32 caps each lane's real steps (slotted
+        caches): a lane stops being active once its budget is spent or,
+        with ``eos_id``, once it samples EOS; after that its cache writes
+        are no-ops, its position freezes and its emitted tokens repeat
+        the last real one (the host trims them).  Greedy streams are
+        token-identical to ``horizon`` single ``decode_step`` calls."""
         from repro_torch.serving.sampling import sample
-        if steps_left is not None or eos_id is not None:
-            raise NotImplementedError(
-                "steps_left / eos_id lane masking arrives with the paged / "
-                "continuous-batching slice")
+        masked = steps_left is not None
+        if eos_id is not None and not masked:
+            raise NotImplementedError("eos_id requires steps_left masking")
         toks = []
         tok = tokens
-        for _ in range(horizon):
-            logits, cache = self.decode_step(params, cache, tok)
+        alive = torch.ones((tokens.shape[0],), dtype=torch.bool,
+                           device=tokens.device)
+        for step in range(horizon):
+            active = (alive & (step < steps_left)) if masked else None
+            logits, cache = self.decode_step(params, cache, tok, active=active)
             nxt = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
+            if masked:
+                nxt = torch.where(active, nxt, tok[:, 0])
+                if eos_id is not None:
+                    alive = alive & ~(active & (nxt == eos_id))
             toks.append(nxt)
             tok = nxt[:, None]
         return torch.stack(toks, dim=1), cache

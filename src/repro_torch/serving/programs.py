@@ -1,0 +1,148 @@
+"""The programs the continuous-batching scheduler dispatches.
+
+Port of ``repro.serving.programs``.  The reference jit-compiles each
+program; here prefill (whole-prompt or chunked) and the copy-on-write
+page copy are plain calls, and the decode step — K=1 (``step``) or a
+horizon-K macro-tick (``steps``) — is, on the card, a CUDA graph
+captured once per (route, K) at first use and replayed after that.  The
+graph reads its tokens and lane budgets from static input buffers and
+the cache, block table and positions at their fixed addresses, which the
+scheduler updates in place.  On a CPU model every program is a plain
+call.
+
+A replay launches the kernels its capture recorded without calling their
+wrappers, so the wrappers' ``launches`` counters see the capture only.
+``captured_launches`` and ``replay_launches`` keep the other two terms,
+by kernel name: what the captures recorded (counted by the wrappers but
+not launched) and what the replays launched.  The kernels launched on
+the card are ``launches - captured_launches + replay_launches``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import launch_counts
+from repro_torch.models.model import Model
+
+captured_launches: Dict[str, int] = {}
+replay_launches: Dict[str, int] = {}
+
+
+def _tally(counter: Dict[str, int], launches: Dict[str, int]) -> None:
+    for name, n in launches.items():
+        counter[name] = counter.get(name, 0) + n
+
+
+class _Captured:
+    """One captured decode program: its graph, static inputs, output and
+    the kernel launches (by kernel name) that one replay makes."""
+
+    def __init__(self, graph, inputs: Dict[str, torch.Tensor], output,
+                 launches: Dict[str, int]):
+        self.graph, self.inputs, self.output = graph, inputs, output
+        self.launches = launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _tally(replay_launches, self.launches)
+
+
+class SchedulerPrograms:
+    """The decode and prefill programs of one ``SlotScheduler``.
+
+    ``prefill_chunk``/``copy_page`` exist only paged, ``prefill_slot``
+    only contiguous.  ``step``/``steps`` return (logits, cache) and
+    (token matrix, cache); on the card the returned tensor is the
+    graph's static output, overwritten by the next replay."""
+
+    def __init__(self, model: Model, *, paged: bool, dispatch_mode: str,
+                 steps_per_tick: int, temperature: float):
+        if dispatch_mode != "full_jit":
+            raise NotImplementedError(
+                f"dispatch_mode {dispatch_mode!r} arrives with the dispatch "
+                "A/B slice, which ports Model.step_program; the scheduler "
+                "runs the full_jit arm (one captured graph per step)")
+        self.model = model
+        self.capture = model.device.type == "cuda"
+        if self.capture and steps_per_tick > 1 and temperature > 0.0:
+            raise NotImplementedError(
+                "stochastic sampling inside a captured horizon-K graph is not "
+                "ported; use steps_per_tick=1 or greedy decoding on the card")
+        self.prefill_chunk = model.prefill_chunk_into_slot if paged else None
+        self.copy_page = model.copy_kv_page if paged else None
+        self.prefill_slot = None if paged else model.prefill_into_slot
+        self._graphs: Dict[tuple, _Captured] = {}
+
+    def _capture(self, key, inputs: Dict[str, torch.Tensor], warm,
+                 run) -> _Captured:
+        """Warm the program up on a side stream with every lane inactive
+        (state-preserving: no position moves, writes go to the garbage
+        page or rewrite the old row), then capture ``run`` on the static
+        ``inputs``.  Capture records the launches without running them."""
+        side = torch.cuda.Stream(self.model.device)
+        side.wait_stream(torch.cuda.current_stream(self.model.device))
+        with torch.cuda.stream(side):
+            warm()
+        torch.cuda.current_stream(self.model.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph):
+            output = run()
+        launches = {name: n - before[name] for name, n in launch_counts().items()
+                    if n != before[name]}
+        _tally(captured_launches, launches)
+        self._graphs[key] = _Captured(graph, inputs, output, launches)
+        return self._graphs[key]
+
+    def step(self, params, cache, tokens: torch.Tensor):
+        """One decode step on every lane; tokens (B, 1) int32."""
+        model = self.model
+        if not self.capture:
+            return model.decode_step(params, cache, tokens.to(model.device))
+        key = (model.decode_backend, 1)
+        prog = self._graphs.get(key)
+        if prog is None:
+            tok = torch.zeros_like(tokens, device=model.device)
+            idle = torch.zeros((tok.shape[0],), dtype=torch.bool,
+                               device=model.device)
+            prog = self._capture(
+                key, {"tokens": tok},
+                lambda: model.decode_step(params, cache, tok, active=idle),
+                lambda: model.decode_step(params, cache, tok)[0])
+        prog.inputs["tokens"].copy_(tokens)
+        prog.replay()
+        return prog.output, cache
+
+    def steps(self, params, cache, tokens: torch.Tensor,
+              steps_left: torch.Tensor, gen: Optional[torch.Generator], *,
+              horizon: int, temperature: float, top_k: int,
+              eos_id: Optional[int]):
+        """A horizon-K macro-tick: (B, horizon) sampled tokens."""
+        model = self.model
+        kw = dict(horizon=horizon, temperature=temperature, top_k=top_k,
+                  eos_id=eos_id)
+        if not self.capture:
+            return model.decode_steps(params, cache, tokens.to(model.device),
+                                      gen, steps_left.to(model.device), **kw)
+        key = (model.decode_backend, horizon)
+        prog = self._graphs.get(key)
+        if prog is None:
+            tok = torch.zeros_like(tokens, device=model.device)
+            left = torch.zeros_like(steps_left, device=model.device)
+            prog = self._capture(
+                key, {"tokens": tok, "steps_left": left},
+                lambda: model.decode_steps(params, cache, tok, None,
+                                           torch.zeros_like(left), **kw),
+                lambda: model.decode_steps(params, cache, tok, None, left,
+                                           **kw)[0])
+        prog.inputs["tokens"].copy_(tokens)
+        prog.inputs["steps_left"].copy_(steps_left)
+        prog.replay()
+        return prog.output, cache
+
+    def raw_step_cache_size(self) -> Optional[int]:
+        """CUDA graphs captured (one per (route, K)); None off the card,
+        where nothing is captured."""
+        return len(self._graphs) if self.capture else None

@@ -15,6 +15,8 @@ from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.int4_matmul import ops as i4_ops
 from repro_torch.kernels.int4_matmul.ref import int4_matmul_ref
+from repro_torch.kernels.paged_decode_attention import ops as pda_ops
+from repro_torch.kernels.paged_decode_attention import ref as pda_ref
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -70,6 +72,67 @@ def test_int4_matmul(cuda, dtype, M, K, N, group):
     _close(out, int4_matmul_ref(x, packed, scales, group), dtype)
 
 
+def _paged_case(dev, dtype, quant, B, Hq, Hkv, hd, page, max_blocks, lengths):
+    """Pools with a shuffled block table; blocks past each length point
+    at page 0, the garbage sentinel."""
+    g = torch.Generator(device=dev).manual_seed(page * 131 + hd)
+    n_pages = 1 + B * max_blocks
+    q = torch.randn((B, Hq, hd), generator=g, device=dev).to(dtype)
+    shape = (n_pages, page, Hkv, hd)
+    if quant:
+        k = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+        ks = 0.02 * torch.rand(shape[:3], generator=g, device=dev)
+        vs = 0.02 * torch.rand(shape[:3], generator=g, device=dev)
+        ks[1] = 0.0                     # an all-zero row of scales
+    else:
+        k = torch.randn(shape, generator=g, device=dev).to(dtype)
+        v = torch.randn(shape, generator=g, device=dev).to(dtype)
+        ks = vs = None
+    perm = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
+    bt = perm.reshape(B, max_blocks).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    live = (torch.arange(max_blocks, device=dev)[None] * page) < lens[:, None]
+    bt = torch.where(live, bt, 0).to(torch.int32).contiguous()
+    return q, k, v, ks, vs, bt, lens
+
+
+def _paged_plain(q, k, v, ks, vs, bt, lens):
+    if ks is None:
+        return pda_ref.paged_decode_attention_ref(q, k, v, bt, lens)
+    return pda_ref.paged_decode_attention_quant_ref(q, k, v, ks, vs, bt, lens)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,hd,page,max_blocks,lengths", [
+    (28, 4, 128, 16, 9, (140, 1, 0, 77)), (8, 2, 64, 4, 6, (24, 5, 13)),
+    (16, 2, 32, 8, 5, (40, 39, 0)), (4, 4, 128, 32, 3, (96, 33))])
+def test_paged_decode_attention(cuda, dtype, quant, Hq, Hkv, hd, page,
+                                max_blocks, lengths):
+    """Kernel 2 against its plain version; the garbage page 0, poisoned,
+    must leave every output bit-equal (it is never read), and a
+    length-0 lane gives zeros."""
+    B = len(lengths)
+    q, k, v, ks, vs, bt, lens = _paged_case(cuda, dtype, quant, B, Hq, Hkv, hd,
+                                            page, max_blocks, lengths)
+    before = pda_ops.launches
+    out = pda_ops.paged_decode_attention(q, k, v, bt, lens, ks, vs)
+    torch.cuda.synchronize()
+    assert pda_ops.launches == before + 1
+    _close(out, _paged_plain(q, k, v, ks, vs, bt, lens), dtype)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert torch.all(out[i] == 0)
+    k[0] = 100 if quant else 1e9
+    v[0] = -100 if quant else -1e9
+    if quant:
+        ks[0], vs[0] = 1e9, 1e9
+    again = pda_ops.paged_decode_attention(q, k, v, bt, lens, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 4, 96), device=cuda)
     k = torch.zeros((1, 8, 2, 96), device=cuda)
@@ -120,3 +183,42 @@ def test_decode_step_replays_as_a_cuda_graph(cuda, quant):
             torch.testing.assert_close(logits, w, rtol=1e-5, atol=1e-5)
     assert int(cache["pos"]) == 12 + len(feed)
     assert da_ops.launches == before[0] + cfg.n_layers
+
+
+@pytest.mark.parametrize("kv_quant,K", [("none", 1), ("int8", 4)])
+def test_paged_scheduler_graph_replays_equal_plain_calls(cuda, kv_quant, K):
+    """The paged scheduler's decode step, captured once as a CUDA graph
+    and replayed through admission, preemption and backfill, gives the
+    same event log as the same scheduler making plain calls; the graph
+    is captured once, and the kernel wrapper runs only at warm-up and
+    capture (replays do not pass through Python); the replays launch the
+    kernel as often as the plain calls do."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import SessionRequest, SlotScheduler, programs
+    cfg = get_config("qwen2.5-3b").reduced().replace(dtype="float32")
+    model = Model(cfg, decode_backend="cuda", device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    reqs = [SessionRequest(f"s{i}", (torch.arange(6 + 3 * i) * (i + 5)
+                                     % cfg.vocab_size).numpy(), 6 + i % 3)
+            for i in range(5)]
+    runs = []
+    for capture in (True, False):
+        sched = SlotScheduler(model, params, n_slots=2, max_len=40, paged=True,
+                              page_size=8, n_pages=1 + 5, steps_per_tick=K,
+                              kv_dtype=torch.int8 if kv_quant == "int8" else None)
+        sched._progs.capture = capture
+        for r in reqs:
+            sched.submit(r)
+        before = pda_ops.launches
+        replayed = programs.replay_launches.get("paged_decode_attention", 0)
+        res = sched.run()
+        replayed = programs.replay_launches.get("paged_decode_attention",
+                                                0) - replayed
+        runs.append((res, pda_ops.launches - before, replayed))
+    (graph, graph_launches, replayed), (plain, plain_launches, _) = runs
+    assert graph.events == plain.events
+    assert graph.preemptions >= 1 and graph.step_cache_size == 1
+    assert graph_launches == 2 * K * cfg.n_layers
+    assert plain_launches == K * cfg.n_layers * plain.decode_steps
+    assert replayed == plain_launches

@@ -180,14 +180,18 @@ def test_cache_is_updated_in_place():
 
 
 def test_unported_paths_raise():
+    from repro_torch.serving import SlotScheduler
     cfg = _port_cfg("qwen2.5-3b")
     model = Model(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="paged"):
-        model.init_cache(2, 16, paged=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        model.init_cache(2, 16, kv_quant="int8")
-    with pytest.raises(NotImplementedError, match="slice"):
-        model.decode_steps(None, None, None, steps_left=torch.ones(2), horizon=2)
+    with pytest.raises(NotImplementedError, match="host-tier"):
+        SlotScheduler(model, None, n_slots=2, max_len=16, paged=True,
+                      kv_tier="host")
+    with pytest.raises(NotImplementedError, match="fault-injection"):
+        SlotScheduler(model, None, n_slots=2, max_len=16,
+                      fault_injector=object())
+    with pytest.raises(NotImplementedError, match="dispatch A/B"):
+        SlotScheduler(model, None, n_slots=2, max_len=16,
+                      dispatch_mode="stage_jit")
     with pytest.raises(NotImplementedError, match="dispatch"):
         model.step_program(None, None)
     with pytest.raises(NotImplementedError, match="family"):
