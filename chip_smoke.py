@@ -11,8 +11,10 @@ Phases, in order; each raises on failure and nothing catches:
     all started together).
  2. decode-attention kernel against its plain version, bf16 and f32, on
     the qwen2.5-7b decode shape and on ragged, per-sequence-mask (one row
-    fully masked), MHA, G=4, G=8 and B=3 shapes; times of the kernel, the
-    plain version and ``F.scaled_dot_product_attention`` (timed only).
+    fully masked), MHA, G=4, G=8 and B=3 shapes, and at the first decode
+    step of both main paths that run it (qwen2.5-7b and zamba2-1.2b's
+    shared block, S=2081); times of the kernel, the plain version and
+    ``F.scaled_dot_product_attention`` (timed only).
  3. int4-matmul kernel against its plain version at the qwen2.5-7b layer
     shapes, M=1 and M=2048, with codes that hit -8 and 7; times of the
     kernel, the plain version and ``torch.matmul`` on the bf16
@@ -23,37 +25,67 @@ Phases, in order; each raises on failure and nothing catches:
     pages 4, 8 and 32; a poisoned garbage page 0 must leave the output
     bit-equal; times of the kernel, the plain version and gather +
     ``F.scaled_dot_product_attention`` (timed only), bf16 and int8.
- 5. the decode-attention kernel inside the real path: a qwen2.5-7b-width
+ 5. RMSNorm kernel against its plain version, bf16 and f32, D in {2048,
+    2560, 3584, 4096, 5120} x R in {1, 4, 512, 2048} (every width and row
+    count of the main paths), with and without w, and a strided
+    slice read in place; bf16 output within one bf16 spacing of the plain
+    version's; times of the kernel, the plain version and
+    ``F.rms_norm`` (timed only) at the main paths' rows.
+ 6. SSD-update kernel against its plain version with f32 and bf16
+    x/B/C at the mamba2-2.7b (1,80,64,128) and zamba2-1.2b (1,64,64,64)
+    decode shapes, grouped (3,8,16,32, G=2) and with dt*A near -1e4
+    (exp gives 0); the in-place call (out=h) must be bit-equal to the
+    out-of-place one; times of the kernel and the plain version (no
+    single PyTorch call computes it).
+ 7. the decode-attention kernel inside the real path: a qwen2.5-7b-width
     model with 2 layers in f32; greedy tokens of ``decode_backend="cuda"``
     and ``"sdpa"`` must be identical over 16 tokens.
- 6. the paged kernel inside the real path: the same f32 model serves 4
+ 8. the paged kernel inside the real path: the same f32 model serves 4
     sessions through 2 paged slots (``generate_continuous``, chunked
     prefill); each session's greedy tokens on the "cuda" route must equal
     those on the "sdpa" gather route and its own batch-1
     ``generate_streamed`` tokens.
- 7. the batch-1 main path at full width: qwen2.5-7b, 28 layers, bf16,
+ 9. kernels 4 and 5 (and 1) inside the real path, card against CPU: a
+    mamba2-2.7b-width model with 2 layers and a zamba2-1.2b-width model
+    with 4, f32, weights drawn once on the CPU and copied to the card;
+    16 greedy tokens must be identical and the first-step logits agree
+    within 1e-4 x max|logit|.
+10. the batch-1 main path at full width: qwen2.5-7b, 28 layers, bf16,
     random weights drawn on the card; three requests of 2048 prompt
     tokens through ``DecodeEngine`` (two ``generate_streamed``, one
     ``generate_fused``, 32 new tokens each); the decode-attention launch
-    count must be 28 x decode steps; first-step logits of "cuda" and
-    "sdpa" must agree; p50 step time against the analytic floor.
- 8. the int4 main path: the same model quantised on the card
+    count must be 28 x decode steps and the RMSNorm count 57 x (decode
+    steps + prefills); first-step logits of "cuda" and "sdpa" must
+    agree; p50 step time against the analytic floor.
+11. the int4 main path: the same model quantised on the card
     (``int4_fused``), one request; the int4 launch count must be 7 x 28
     per decode step plus the prefill's.
- 9. the paged serving path at full width: qwen2.5-7b, 28 layers, bf16,
+12. the paged serving path at full width: qwen2.5-7b, 28 layers, bf16,
     8 sessions (prompts 2048+, 32+ new tokens) through 4 paged slots,
     page 16, prefill chunk 512, through ``generate_continuous`` twice:
     bf16 KV at full backing with K=1, and int8 KV on an oversubscribed
     pool (at least one preemption) with K=4.  Every session must end
     with its full budget, the decode step must be captured once per
-    (route, K), its replays must launch the paged kernel 28 times per
-    device step (the capture's launches times the replays; the profiler
-    must see the same 28 in a steady window), and first-step logits of
-    "cuda" and "sdpa" must agree;
+    (route, K), its replays must launch the paged kernel 28 times and
+    the RMSNorm kernel 57 times per device step (the capture's launches
+    times the replays; the profiler must see the same in a steady
+    window), and first-step logits of "cuda" and "sdpa" must agree;
     p50 decode time per token, aggregate tok/s and the device-busy share.
-10. the kernels line: one JSON object with every ported kernel's
-    numbers, and a line naming the TPU kernels still to port.
-11. last line: ``{"ok": true, "device": {...}}``.
+13. mamba2-2.7b at full width and depth (64 layers, bf16, random weights
+    drawn on the card): the requests of phase 10; launches must be 64
+    SSD updates per decode step and 129 RMSNorms per decode step and
+    prefill; streamed and fused tokens identical; the first-step logits
+    must agree within 5e-2 x max|logit| with one decode step of the same
+    weights and prefilled state copied to the CPU (plain versions); p50
+    step against the floor, device time per step.
+14. zamba2-1.2b at full width and depth (38 Mamba2 layers, 7 applications
+    of the shared attention block): the same, with 38 SSD updates, 7
+    decode attentions and 91 RMSNorms per decode step.
+15. the kernels line: one JSON object with every ported kernel's
+    numbers (all five: no TPU kernel is left to port); ``launches`` sums
+    the main paths that run the kernel and ``launches_by_path`` names
+    each path's count.
+16. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Times are CUDA-event medians of 30 runs
@@ -179,6 +211,8 @@ def check_decode_attention(dev, timer):
          torch.arange(2048) < 1500),
         ("B=3", 3, 28, 4, 128, 1000,
          torch.arange(1000)[None, :] < torch.tensor([[1000], [517], [1]])),
+        ("zamba2-1.2b shared block: S=2081, first decode step", 1, 32, 32, 64,
+         S_main, torch.arange(S_main) <= PROMPT),
         ("main path: S=2081, first decode step", 1, 28, 4, 128, S_main,
          torch.arange(S_main) <= PROMPT),
     ]
@@ -424,7 +458,154 @@ def check_paged_decode_attention(dev, timer):
     return rows
 
 
-# ---------------------------------------------------------------- phases 5-9
+# ---------------------------------------------------------------- phase 5
+# zamba2 d_model, mamba2 d_model, qwen2.5-7b d_model, zamba2 d_inner, mamba2 d_inner
+NORM_WIDTHS = (2048, 2560, 3584, 4096, 5120)
+NORM_ROWS = (1, 4, 512, 2048)   # decode row, paged step, prefill chunk, prompt
+
+
+def norm_case(dev, dtype, R, D, seed, parametric=True):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (3 * torch.randn((R, D), generator=g, device=dev)).to(dtype)
+    w = ((1 + 0.1 * torch.randn((D,), generator=g, device=dev)).to(dtype)
+         if parametric else None)
+    return x, w
+
+
+def check_rmsnorm(dev, timer):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops, ref
+    log("== phase 5: RMSNorm, kernel vs plain (bf16 within one bf16 spacing "
+        "of the plain version's output, element by element; f32 1e-4)")
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in NORM_WIDTHS:
+            for R in NORM_ROWS:
+                for parametric in (True, False):
+                    x, w = norm_case(dev, dtype, R, D, R + D, parametric)
+                    out = ops.rmsnorm(x, w)
+                    torch.cuda.synchronize()
+                    want = ref.rmsnorm_ref(x, w)
+                    err, rel = rel_err(out, want)
+                    if dtype == torch.bfloat16:
+                        ok = bool(((out.float() - want.float()).abs()
+                                   <= want.float().abs() * 2 ** -7).all())
+                    else:
+                        ok = rel <= TOL[dtype]
+                    worst = max(worst, err)
+                    if not ok:
+                        raise AssertionError(f"rmsnorm {dtype} R={R} D={D} "
+                                             f"w={parametric} disagrees ({err:.3g})")
+        log(f"  {str(dtype)[6:]:8s} D in {NORM_WIDTHS} x R in {NORM_ROWS}, with "
+            f"and without w: ok (largest max_abs_err so far {worst:.3g})")
+    xs = 3 * torch.randn((3, 7, 3584), device=dev).to(torch.bfloat16)
+    strided = xs[:, -1:]
+    if not torch.equal(ops.rmsnorm(strided, None),
+                       ops.rmsnorm(strided.contiguous(), None)):
+        raise AssertionError("rmsnorm of a strided slice differs")
+    log("  strided slice x[:, -1:] of (3, 7, 3584) read in place: ok")
+
+    rows, row = [], None
+    for R, D in ((1, 2560), (1, 5120), (1, 3584), (2048, 2560), (2048, 5120),
+                 (2048, 3584)):
+        x, w = norm_case(dev, torch.bfloat16, R, D, 7 * R + D)
+        out = ops.rmsnorm(x, w)
+        err, _ = rel_err(out, ref.rmsnorm_ref(x, w))
+        ms = timer(lambda: ops.rmsnorm(x, w))
+        plain_ms = timer(lambda: ref.rmsnorm_ref(x, w))
+        lib_ms = timer(lambda: F.rms_norm(x, (D,), w, eps=1e-6))
+        nbytes = 2 * R * D * 2 + D * 2
+        b_ms, b_by = bound_ms(nbytes, 4 * R * D, torch.float32)
+        log(f"  times, bf16 R={R} D={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.rms_norm {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: "
+            f"{nbytes} bytes)")
+        rows.append((R, D, ms))
+        if (R, D) == (2048, 2560):
+            row = dict(name="rmsnorm", route="cuda",
+                       source="src/repro_torch/csrc/rmsnorm.cu",
+                       replaces="src/repro/kernels/rmsnorm/rmsnorm.py:24",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms,
+                       shape="bf16 R=2048 D=2560 with w (mamba2-2.7b prefill "
+                             "norm1)")
+    return row
+
+
+# ---------------------------------------------------------------- phase 6
+def ssd_bytes(B, H, P, N, G, xbytes=4):
+    """Each input read once, each output written once: h in and h' out
+    (f32), x, dt, A, B and C in, y out."""
+    return (2 * B * H * P * N * 4 + B * H * P * xbytes + B * H * 4 + H * 4
+            + 2 * B * G * N * xbytes + B * H * P * 4)
+
+
+def ssd_case(dev, dtype, B, H, P, N, G, seed, dA_scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((B, H, P, N), generator=g, device=dev)
+    x = torch.randn((B, H, P), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, H), generator=g, device=dev))
+    A = -dA_scale * torch.exp(torch.randn((H,), generator=g, device=dev))
+    Bm = torch.randn((B, G, N), generator=g, device=dev).to(dtype)
+    Cm = torch.randn((B, G, N), generator=g, device=dev).to(dtype)
+    return h, x, dt, A, Bm, Cm
+
+
+def check_ssd_update(dev, timer):
+    from repro_torch.kernels.ssd_update import ops, ref
+    log("== phase 6: SSD update, kernel vs plain (h' and y f32, tol 1e-4 x "
+        "max(1,|plain|))")
+    cases = [("mamba2-2.7b decode", 1, 80, 64, 128, 1, 1.0),
+             ("zamba2-1.2b decode", 1, 64, 64, 64, 1, 1.0),
+             ("grouped, G=2", 3, 8, 16, 32, 2, 1.0),
+             ("very negative dA (exp -> 0)", 1, 80, 64, 128, 1, 1e4)]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (label, B, H, P, N, G, scale) in enumerate(cases):
+            h, x, dt, A, Bm, Cm = ssd_case(dev, dtype, B, H, P, N, G, i, scale)
+            want_h, want_y = ref.ssd_update_ref(h, x, dt, A, Bm, Cm)
+            h_new, y = ops.ssd_update(h, x, dt, A, Bm, Cm)
+            torch.cuda.synchronize()
+            errs = [rel_err(h_new, want_h), rel_err(y, want_y)]
+            same = ops.ssd_update(h, x, dt, A, Bm, Cm, out=h)
+            torch.cuda.synchronize()
+            in_place = (same[0] is h and torch.equal(h, h_new)
+                        and torch.equal(same[1], y))
+            ok = all(r <= TOL[torch.float32] for _, r in errs) and in_place
+            worst = max(worst, errs[0][0], errs[1][0])
+            log(f"  {str(dtype)[6:]:8s} x/B/C, {label}: B={B} H={H} P={P} N={N} "
+                f"G={G}: max_abs_err h' {errs[0][0]:.3g}, y {errs[1][0]:.3g}; "
+                f"in place (out=h) bit-equal {in_place}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"ssd_update {label} {dtype} disagrees")
+
+    row = None
+    for label, B, H, P, N, G in (("mamba2-2.7b", 1, 80, 64, 128, 1),
+                                 ("zamba2-1.2b", 1, 64, 64, 64, 1)):
+        h, x, dt, A, Bm, Cm = ssd_case(dev, torch.float32, B, H, P, N, G, 99)
+        want_h, want_y = ref.ssd_update_ref(h, x, dt, A, Bm, Cm)
+        h_new, y = ops.ssd_update(h, x, dt, A, Bm, Cm)
+        err = max(rel_err(h_new, want_h)[0], rel_err(y, want_y)[0])
+        ms = timer(lambda: ops.ssd_update(h, x, dt, A, Bm, Cm, out=h))
+        plain_ms = timer(lambda: ref.ssd_update_ref(h, x, dt, A, Bm, Cm))
+        nbytes = ssd_bytes(B, H, P, N, G)
+        b_ms, b_by = bound_ms(nbytes, 5 * B * H * P * N, torch.float32)
+        log(f"  times at the {label} decode shape (f32 x/B/C as the model passes "
+            f"them, in place): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library: no single PyTorch call, bound {b_ms:.6f} ms ({b_by}: "
+            f"{nbytes} bytes)")
+        if row is None:
+            row = dict(name="ssd_update", route="cuda",
+                       source="src/repro_torch/csrc/ssd_update.cu",
+                       replaces="src/repro/kernels/ssd_update/ssd_update.py:37",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None,
+                       shape="f32 B=1 H=80 P=64 N=128 G=1, in place "
+                             "(mamba2-2.7b decode)")
+    return row
+
+
+# ---------------------------------------------------------------- phases 7-12
 def prompt_batch(vocab, dev, n=None, seed=0):
     rng = np.random.default_rng(seed)
     n = n or PROMPT
@@ -435,7 +616,7 @@ def check_f32_tokens(dev):
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serving import DecodeEngine
-    log("== phase 5: kernel inside the real path (qwen2.5-7b width, 2 layers, f32)")
+    log("== phase 7: kernel inside the real path (qwen2.5-7b width, 2 layers, f32)")
     cfg = get_config("qwen2.5-7b").replace(n_layers=2, dtype="float32")
     model = Model(cfg, decode_backend="cuda", device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(1))
@@ -462,9 +643,10 @@ def main_path(dev):
     from repro_torch.core.hardware import GPU_H100
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.int4_matmul import ops as i4_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.models.model import Model
     from repro_torch.serving import DecodeEngine
-    log("== phase 7: main path, qwen2.5-7b full width (28 layers, bf16), "
+    log("== phase 10: main path, qwen2.5-7b full width (28 layers, bf16), "
         f"prompt {PROMPT}, {NEW} new tokens")
     cfg = get_config("qwen2.5-7b")
     model = Model(cfg, decode_backend="cuda", device=dev)
@@ -479,17 +661,23 @@ def main_path(dev):
     engine.generate_streamed(prompt_batch(cfg.vocab_size, dev, 16), max_len=64,
                              n_new=4)   # warm-up (cuBLAS handles, caches)
 
-    da_ops.launches = i4_ops.launches = 0
+    da_ops.launches = i4_ops.launches = rms_ops.launches = 0
     runs = [engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True),
             engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True),
             engine.generate_fused(batch, max_len=max_len, n_new=NEW)]
-    da_launches, i4_main = da_ops.launches, i4_ops.launches
+    da_launches, i4_main, rms = da_ops.launches, i4_ops.launches, rms_ops.launches
     steps = 3 * (NEW - 1)
+    norms = 2 * cfg.n_layers + 1
     log(f"  decode_attention launches {da_launches} ({cfg.n_layers} x {steps} "
-        f"decode steps = {cfg.n_layers * steps}); int4_matmul launches {i4_main}")
+        f"decode steps = {cfg.n_layers * steps}); rmsnorm launches {rms} ({norms} "
+        f"x ({steps} decode steps + 3 prefills) = {norms * (steps + 3)}); "
+        f"int4_matmul launches {i4_main}")
     if da_launches != cfg.n_layers * steps:
         raise AssertionError("the main path did not run decode attention once "
                              "per layer and step")
+    if rms != norms * (steps + 3):
+        raise AssertionError("the main path did not run the RMSNorm kernel for "
+                             "every norm")
     for i, r in enumerate(runs):
         if r.tokens.shape != (1, NEW):
             raise AssertionError(f"request {i}: tokens {tuple(r.tokens.shape)}")
@@ -529,7 +717,7 @@ def main_path(dev):
     device_time(model, engine, batch, max_len, tok, p50)
     torch.cuda.empty_cache()
 
-    log("== phase 8: int4 main path (int4_fused, quantised on the card)")
+    log("== phase 11: int4 main path (int4_fused, quantised on the card)")
     t0 = time.perf_counter()
     engine_q = DecodeEngine(model, params, quant_path="int4_fused")
     torch.cuda.synchronize()
@@ -555,7 +743,7 @@ def main_path(dev):
         f"(floor_cell weight_dtype_bytes=0.5); this path's own bytes (int4 "
         f"linears, bf16 embedding and head, bf16 KV) give {own:.4f} ms; "
         f"{res.tokens_per_s:.2f} tok/s")
-    return da_launches, i4_launches
+    return da_launches, i4_launches, rms
 
 
 def device_time(model, engine, batch, max_len, tok, p50_ms, steps=4):
@@ -588,7 +776,7 @@ def check_f32_paged_tokens(dev):
     from repro_torch.launch.serve import mixed_requests
     from repro_torch.models.model import Model
     from repro_torch.serving import DecodeEngine
-    log("== phase 6: paged kernel inside the real path (qwen2.5-7b width, "
+    log("== phase 8: paged kernel inside the real path (qwen2.5-7b width, "
         "2 layers, f32): 4 sessions through 2 paged slots")
     cfg = get_config("qwen2.5-7b").replace(n_layers=2, dtype="float32")
     model = Model(cfg, decode_backend="cuda", device=dev)
@@ -696,8 +884,9 @@ def paged_window(model, params, reqs, max_len, kw, ticks=3):
     """Device view of steady paged decode: a scheduler over the first 4
     sessions runs until every slot decodes and its graph is captured;
     then ``ticks`` ticks run under torch.profiler, timed by the host
-    clock (synchronised).  Returns (paged-kernel launches per device
-    step, device ms per tick, wall ms per tick, the profiler's rows)."""
+    clock (synchronised).  Returns (paged-kernel and RMSNorm-kernel
+    launches per device step, device ms per tick, wall ms per tick, the
+    profiler's rows)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import SlotScheduler
@@ -726,16 +915,19 @@ def paged_window(model, params, reqs, max_len, kw, ticks=3):
             if str(e.device_type).endswith("CUDA")]
     busy = sum(r[0] for r in rows) / 1e3 / ticks
     partial = sum(r[2] for r in rows if "paged_partial" in r[1])
-    return partial / max(dev_steps, 1), busy, wall, rows
+    norms = sum(r[2] for r in rows if "rmsnorm_kernel" in r[1])
+    return (partial / max(dev_steps, 1), norms / max(dev_steps, 1), busy, wall,
+            rows)
 
 
 def paged_serving(dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_decode_attention import ops as pda_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.launch.serve import mixed_requests
     from repro_torch.models.model import Model
     from repro_torch.serving import DecodeEngine, programs
-    log(f"== phase 9: paged serving, qwen2.5-7b full width (28 layers, bf16), "
+    log(f"== phase 12: paged serving, qwen2.5-7b full width (28 layers, bf16), "
         f"8 sessions through 4 slots, prompts {PROMPT}+, {NEW}+ new tokens, "
         f"page {PAGE}, prefill chunk 512")
     cfg = get_config("qwen2.5-7b")
@@ -747,14 +939,14 @@ def paged_serving(dev):
     # 8 pages short of the first four sessions' full length: they cannot
     # all reach their budgets resident, so one is preempted
     tight = 1 + sum(pages_for[:4]) - 8
-    counts = []
+    counts, rms_counts = [], []
     for label, kv_dtype, n_pages, K in (
             ("bf16 KV, full backing, K=1", None, None, 1),
             (f"int8 KV, {tight} pages (oversubscribed), K=4", torch.int8, tight, 4)):
         engine = DecodeEngine(model, params, kv_dtype=kv_dtype)
         kw = dict(n_slots=4, paged=True, page_size=PAGE, n_pages=n_pages,
                   prefill_chunk=512, steps_per_tick=K)
-        pda_ops.launches = 0
+        pda_ops.launches = rms_ops.launches = 0
         programs.captured_launches.clear()
         programs.replay_launches.clear()
         res = engine.generate_continuous(reqs, max_len=max_len, **kw)
@@ -763,6 +955,11 @@ def paged_serving(dev):
         replayed = programs.replay_launches.get("paged_decode_attention", 0)
         launches = wrapper - captured + replayed    # launched on the card
         counts.append(launches)
+        norms = 2 * cfg.n_layers + 1
+        rms_captured = programs.captured_launches.get("rmsnorm", 0)
+        rms_replayed = programs.replay_launches.get("rmsnorm", 0)
+        rms = rms_ops.launches - rms_captured + rms_replayed
+        rms_counts.append(rms)
         budgets = {r.session_id: r.max_new_tokens for r in reqs}
         got = {sid: len(s.tokens) for sid, s in res.sessions.items()}
         step_s = [t for s in res.sessions.values() for t in s.step_times_s]
@@ -773,7 +970,10 @@ def paged_serving(dev):
             f"launches {launches} = {wrapper} wrapper calls (warm-up + capture, "
             f"{2 * K} x {cfg.n_layers}) - {captured} recorded at capture + "
             f"{replayed} by {res.dispatches} graph replays ({K} x "
-            f"{cfg.n_layers} each)")
+            f"{cfg.n_layers} each); rmsnorm launches {rms} = "
+            f"{rms_ops.launches} wrapper calls (prefill chunks, warm-up, "
+            f"capture) - {rms_captured} recorded at capture + {rms_replayed} "
+            f"by the replays ({K} x {norms} each)")
         log(f"    aggregate {res.tokens_per_s:.2f} tok/s over {res.wall_s:.3f} s "
             f"wall; p50 decode time per token {statistics.median(step_s) * 1e3:.4f}"
             f" ms (n={len(step_s)}); mean tick {res.wall_s / res.ticks * 1e3:.4f} ms; "
@@ -788,36 +988,183 @@ def paged_serving(dev):
             raise AssertionError(f"{label}: the replays launched the paged "
                                  f"kernel {replayed} times, want {cfg.n_layers} "
                                  "per device step")
+        if rms_captured != K * norms or rms_replayed != res.dispatches * K * norms:
+            raise AssertionError(f"{label}: the captured step does not run the "
+                                 f"RMSNorm kernel {norms} times per device step")
         if n_pages is not None and res.preemptions < 1:
             raise AssertionError(f"{label}: the tight pool preempted no one")
         p50 = statistics.median(step_s) * 1e3
-        per_step, busy, wall, rows = paged_window(
+        per_step, norm_step, busy, wall, rows = paged_window(
             model, engine.params, reqs, max_len, dict(kw, kv_dtype=kv_dtype))
         log(f"    steady window (4 slots decoding, 3 ticks of {K} device "
-            f"step(s), torch.profiler): {per_step:g} paged-kernel launches per "
+            f"step(s), torch.profiler): {per_step:g} paged-kernel and "
+            f"{norm_step:g} RMSNorm-kernel launches per "
             f"device step; device {busy / K:.4f} ms busy per device step = "
             f"{busy / K / p50:.1%} of the unprofiled p50 decode time per token "
             f"({busy / wall:.1%} of the profiled window's own {wall / K:.4f} ms "
             f"per step); largest per tick:")
         for t, name, n in sorted(rows, reverse=True)[:6]:
             log(f"      {t / 1e3 / 3:8.4f} ms  {n / 3:6.1f}x  {name[:90]}")
-        if per_step != cfg.n_layers:
-            raise AssertionError(f"{label}: {per_step} paged-kernel launches per "
-                                 f"device step, want {cfg.n_layers}")
+        if per_step != cfg.n_layers or norm_step != norms:
+            raise AssertionError(f"{label}: {per_step} paged-kernel and "
+                                 f"{norm_step} RMSNorm launches per device step, "
+                                 f"want {cfg.n_layers} and {norms}")
         with torch.inference_mode():
             paged_first_step_logits(model, engine.params, reqs, max_len, kv_dtype)
         del engine
         torch.cuda.empty_cache()
+    return counts, rms_counts
+
+
+# ---------------------------------------------------------------- phases 9, 13, 14
+SSM_ARCHS = (("mamba2-2.7b", 2), ("zamba2-1.2b", 4))   # layers in phase 9
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return None if tree is None else tree.to(dev)
+
+
+def check_f32_ssm_tokens(dev):
+    """The same f32 weights, drawn once on the CPU, served on the card
+    (kernels 1, 4 and 5) and on the CPU (their plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine
+    log("== phase 9: kernels 4, 5 (and 1) inside the real path, card against "
+        "CPU: mamba2-2.7b and zamba2-1.2b width, f32, prompt 256, 16 tokens")
+    prompt = 256
+    for name, layers in SSM_ARCHS:
+        cfg = get_config(name).replace(n_layers=layers, dtype="float32")
+        cpu_model = Model(cfg, device="cpu")
+        cpu_params = cpu_model.init(torch.Generator().manual_seed(3))
+        batch = prompt_batch(cfg.vocab_size, "cpu", prompt, seed=3)
+        out = {}
+        for label, model, params in (
+                ("cpu", cpu_model, cpu_params),
+                ("cuda", Model(cfg, device=dev), to_device(cpu_params, dev))):
+            b = {"tokens": batch["tokens"].to(model.device)}
+            eng = DecodeEngine(model, params)
+            toks = eng.generate_streamed(b, max_len=prompt + 17, n_new=16).tokens
+            with torch.inference_mode():
+                _, cache = eng.prefill(b, prompt + 17)
+                logits, _ = model.decode_step(params, cache, toks[:, :1])
+            out[label] = (toks.cpu(), logits.float().cpu())
+        same = torch.equal(out["cpu"][0], out["cuda"][0])
+        diff = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+        scale = float(out["cpu"][1].abs().max())
+        log(f"  {name} ({layers} layers): greedy tokens cuda "
+            f"{out['cuda'][0][0].tolist()}: {'identical to' if same else 'DIFFER from'}"
+            f" cpu; first-step logits max_abs_diff {diff:.4g}, max|logit| "
+            f"{scale:.4g} (tol 1e-4 x max|logit|)")
+        if not same or diff > 1e-4 * scale:
+            raise AssertionError(f"{name}: card and CPU disagree")
+        del cpu_params, out
+        torch.cuda.empty_cache()
+
+
+def ssm_main_path(dev, name, phase):
+    """Batch-1 decode of an ssm or hybrid arch at full width and depth:
+    three requests through DecodeEngine, launch counts of kernels 1, 4
+    and 5, p50 step against the floor, device time per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.floor import floor_cell
+    from repro_torch.core.hardware import GPU_H100
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd_update import ops as ssd_ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine
+    cfg = get_config(name)
+    model = Model(cfg, device=dev)
+    n_apps = len(model._hybrid_groups()) if cfg.family == "hybrid" else 0
+    log(f"== phase {phase}: {name} full width ({cfg.n_layers} Mamba2 layers"
+        + (f" + {n_apps} shared-attention applications" if n_apps else "")
+        + f", d_model {cfg.d_model}, bf16), prompt {PROMPT}, {NEW} new tokens")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"  random weights drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    engine = DecodeEngine(model, params)
+    batch = prompt_batch(cfg.vocab_size, dev)
+    max_len = PROMPT + NEW + 1
+    engine.generate_streamed(prompt_batch(cfg.vocab_size, dev, 16), max_len=64,
+                             n_new=4)   # warm-up (cuBLAS handles, caches)
+
+    da_ops.launches = ssd_ops.launches = rms_ops.launches = 0
+    t0 = time.perf_counter()
+    runs = [engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True),
+            engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True),
+            engine.generate_fused(batch, max_len=max_len, n_new=NEW)]
+    wall = time.perf_counter() - t0
+    counts = dict(ssd_update=ssd_ops.launches, rmsnorm=rms_ops.launches,
+                  decode_attention=da_ops.launches)
+    steps = 3 * (NEW - 1)
+    norms = 2 * cfg.n_layers + 2 * n_apps + 1
+    want = dict(ssd_update=cfg.n_layers * steps, rmsnorm=norms * (steps + 3),
+                decode_attention=n_apps * steps)
+    log(f"  three requests in {wall:.2f} s; launches {counts}; want ssd_update "
+        f"{cfg.n_layers} x {steps} decode steps, rmsnorm {norms} x ({steps} "
+        f"decode steps + 3 prefills), decode_attention {n_apps} x {steps}: {want}")
+    if counts != want:
+        raise AssertionError(f"{name}: the main path's kernel launches {counts} "
+                             f"differ from {want}")
+    for i, r in enumerate(runs):
+        if r.tokens.shape != (1, NEW):
+            raise AssertionError(f"request {i}: tokens {tuple(r.tokens.shape)}")
+    if not (torch.equal(runs[0].tokens, runs[1].tokens)
+            and torch.equal(runs[0].tokens, runs[2].tokens)):
+        raise AssertionError("streamed and fused greedy tokens differ")
+    step_s = runs[0].step_times_s + runs[1].step_times_s
+    p50 = statistics.median(step_s) * 1e3
+    fc = floor_cell(cfg, GPU_H100, PROMPT)
+    log(f"  p50 step {p50:.4f} ms (streamed, n={len(step_s)}); analytic floor "
+        f"{fc.t_floor_ms:.4f} ms (floor_cell {name}, {GPU_H100.name}, ctx "
+        f"{PROMPT}); R_floor {fc.t_floor_ms / p50:.4f}")
+    log("  tok/s: " + ", ".join(f"{r.tokens_per_s:.2f}" for r in runs)
+        + " (streamed, streamed, fused)")
+    tok = runs[0].tokens[:, :1]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        _, cache = engine.prefill(batch, max_len)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        cpu_cache = to_device(cache, "cpu")     # before the step updates it
+        logits, _ = model.decode_step(engine.params, cache, tok)
+        logits = logits.float().cpu()
+        t0 = time.perf_counter()
+        cpu_model = Model(cfg, device="cpu")
+        want, _ = cpu_model.decode_step(to_device(engine.params, "cpu"), cpu_cache,
+                                        tok.cpu())
+        cpu_s = time.perf_counter() - t0
+        want = want.float()
+    if logits.shape != (1, 1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"first-step logits {tuple(logits.shape)} not finite "
+                             "or of the wrong shape")
+    diff = float((logits - want).abs().max())
+    scale = float(want.abs().max())
+    agree = int(logits.argmax()) == int(want.argmax())
+    log(f"  prefill of {PROMPT} tokens {pre_ms:.1f} ms wall; first-step logits "
+        f"(1, 1, {cfg.vocab_size}) finite; against one bf16 decode step on the "
+        f"CPU from the same weights and prefilled state (plain versions, "
+        f"{cpu_s:.1f} s): max_abs_diff {diff:.4g}, max|logit| {scale:.4g}, "
+        f"argmax {'agrees' if agree else 'differs'} (tol 5e-2 x max|logit|)")
+    if diff > 5e-2 * scale:
+        raise AssertionError(f"{name}: first-step logits of the card and the "
+                             "CPU disagree")
+    del cache, cpu_cache, cpu_model
+    device_time(model, engine, batch, max_len, tok, p50)
+    del params, engine, model
+    torch.cuda.empty_cache()
     return counts
 
 
 # ---------------------------------------------------------------- main
-PENDING = [
-    dict(name="ssd_update", replaces="src/repro/kernels/ssd_update/ssd_update.py:37",
-         waits_for="other-families slice (mamba2 / hybrid)"),
-    dict(name="rmsnorm", replaces="src/repro/kernels/rmsnorm/rmsnorm.py:24",
-         waits_for="a later slice (no JAX model path calls it)"),
-]
+PENDING = []    # TPU kernels still to port: none
 
 
 def main() -> int:
@@ -831,17 +1178,35 @@ def main() -> int:
     timer = Timer(dev)
     rows = [check_decode_attention(dev, timer), check_int4_matmul(dev, timer)]
     rows += check_paged_decode_attention(dev, timer)
+    rows += [check_rmsnorm(dev, timer), check_ssd_update(dev, timer)]
     del timer
     torch.cuda.empty_cache()
     check_f32_tokens(dev)
     check_f32_paged_tokens(dev)
-    da_launches, i4_launches = main_path(dev)
+    check_f32_ssm_tokens(dev)
+    da_launches, i4_launches, dense_norms = main_path(dev)
     torch.cuda.empty_cache()
-    paged_launches = paged_serving(dev)
-    for row, n in zip(rows, [da_launches, i4_launches] + paged_launches):
-        row["launches"] = n
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    paged_launches, paged_norms = paged_serving(dev)
+    ssm = [ssm_main_path(dev, "mamba2-2.7b", 13),
+           ssm_main_path(dev, "zamba2-1.2b", 14)]
+    dense, int4 = "qwen2.5-7b batch-1 bf16", "qwen2.5-7b batch-1 int4"
+    paged = ("qwen2.5-7b paged bf16 KV", "qwen2.5-7b paged int8 KV")
+    mamba, zamba = "mamba2-2.7b batch-1", "zamba2-1.2b batch-1"
+    by_path = [
+        {dense: da_launches, zamba: ssm[1]["decode_attention"]},
+        {int4: i4_launches},
+        {paged[0]: paged_launches[0]},
+        {paged[1]: paged_launches[1]},
+        {dense: dense_norms, paged[0]: paged_norms[0], paged[1]: paged_norms[1],
+         mamba: ssm[0]["rmsnorm"], zamba: ssm[1]["rmsnorm"]},
+        {mamba: ssm[0]["ssd_update"], zamba: ssm[1]["ssd_update"]}]
+    for row, counts in zip(rows, by_path):
+        row["launches"] = sum(counts.values())
+        row["launches_by_path"] = counts
+        log(f"  {row['name']} launches per main path: {counts}")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "shape")
     log(json.dumps({"pending_kernels": PENDING}))
     log(smi.splitlines()[0])
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -31,7 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
-SOURCES = ("decode_attention", "int4_matmul", "paged_decode_attention")
+SOURCES = ("decode_attention", "int4_matmul", "paged_decode_attention",
+           "rmsnorm", "ssd_update")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -6,8 +6,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --reduced --device cpu
 
-plus the continuous-batching multi-session modes (slotted or paged KV
-cache, prefix sharing, int8 KV, horizon-K ticks):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+      --prompt-len 2048 --new-tokens 32 --timed [--mode fused]
+
+(the ssm and hybrid archs, ``mamba2-2.7b`` and ``zamba2-1.2b``, serve
+batch-1 only), plus the continuous-batching multi-session modes of the
+attention families (slotted or paged KV cache, prefix sharing, int8 KV,
+horizon-K ticks):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --reduced --device cpu --paged --prefix-cache --kv-quant int8 \
@@ -28,7 +33,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import floor as fl
 from repro_torch.core.hardware import GPU_H100
 from repro_torch.models.attention import DECODE_BACKENDS
-from repro_torch.models.model import Model
+from repro_torch.models.model import ATTENTION_FAMILIES, Model
 from repro_torch.quant import WEIGHT_PATHS
 from repro_torch.serving import DecodeEngine, SessionRequest
 
@@ -104,6 +109,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family not in ATTENTION_FAMILIES and (
+            args.continuous or args.kv_quant != "none"):
+        ap.error(f"--continuous, --paged, --prefix-cache and --kv-quant serve "
+                 f"the attention families; {args.arch} is {cfg.family!r} "
+                 "(batch-1 streamed or fused decode only)")
     model = Model(cfg, decode_backend=args.decode_backend, device=args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init(gen)

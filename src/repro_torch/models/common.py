@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
 Params = Dict[str, torch.Tensor]
 
@@ -43,12 +44,10 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
 
 def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in f32; w=None gives the non-parametric variant (OLMo)."""
-    xf = x.float()
-    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    if w is not None:
-        y = y * w.float()
-    return y.to(x.dtype)
+    """RMSNorm in f32; w=None gives the non-parametric variant (OLMo).
+    A CUDA tensor runs the RMSNorm kernel (kernels/rmsnorm), a CPU
+    tensor its plain version."""
+    return rmsnorm_ops.rmsnorm(x, w, eps)
 
 
 def init_norm(cfg: ArchConfig, dtype, device, d: Optional[int] = None):

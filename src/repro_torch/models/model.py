@@ -1,4 +1,4 @@
-"""Model assembly, dense family.
+"""Model assembly: dense, ssm (Mamba2) and hybrid (Zamba2) families.
 
 Port of ``repro.models.model`` with the same API, params passed in:
 
@@ -10,14 +10,18 @@ Port of ``repro.models.model`` with the same API, params passed in:
     logits, cache = m.decode_step(params, cache, tokens)
 
 Params are a dict with the reference's keys (``embed``, ``blocks``,
-``final_norm``, ``lm_head``); ``blocks`` is a Python list of per-layer
-dicts where the reference stacks layers on a leading L axis.  Caches are
+``final_norm``, ``lm_head``, ``shared_attn`` for the hybrid); ``blocks``
+is a Python list of per-layer dicts where the reference stacks layers
+on a leading L axis.  Caches are
 preallocated and updated **in place**: ``prefill``, the per-slot
 prefills, ``copy_kv_page`` and ``decode_step`` write into the cache they
 are given and return that same dict, and the position ``pos`` (a 0-dim
 device tensor, or a (B,) vector on slotted and paged caches) is advanced
 in place, so a decode step reads nothing back to the host and can replay
-as a CUDA graph at fixed addresses.
+as a CUDA graph at fixed addresses.  The ssm and hybrid families serve
+contiguous batch caches only (their recurrent state ``h`` and conv
+window ``conv`` are updated in place too); slotted, paged and int8-KV
+caches and active-lane masking raise for them, as in the reference.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models.common import (apply_norm, apply_rope, embed_init,
                                        init_mlp, init_norm, make_angle_fn,
                                        mlp_forward)
@@ -46,31 +51,46 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+ATTENTION_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
 class Model:
     def __init__(self, cfg: ArchConfig, *, decode_backend: str = "cuda",
-                 device=None):
-        if cfg.family != "dense":
+                 ssd_chunk: int = mamba2.DEFAULT_CHUNK, device=None):
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"the {cfg.family!r} family arrives with the other-families "
-                "slice; this slice serves the dense family")
+                f"the {cfg.family!r} family is not ported yet; the port "
+                f"serves the {', '.join(PORTED_FAMILIES)} families")
         if decode_backend not in attn.DECODE_BACKENDS:
             raise ValueError(f"decode_backend must be one of "
                              f"{attn.DECODE_BACKENDS}, got {decode_backend!r}")
         self.cfg = cfg
         self.decode_backend = decode_backend
+        self.ssd_chunk = ssd_chunk
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 products in full f32, as the reference computes them
             # (TF32 keeps about three decimal digits)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.angle_fn = make_angle_fn(cfg, self.device)
+        self.angle_fn = make_angle_fn(cfg, self.device) if cfg.n_heads else None
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
     def _init_block(self, gen: torch.Generator) -> Params:
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        if cfg.family in ("ssm", "hybrid"):
+            return {"norm1": init_norm(cfg, dt, dev),
+                    "mamba": mamba2.init_mamba(gen, cfg, dt)}
+        return self._init_shared_attn(gen)
+
+    def _init_shared_attn(self, gen: torch.Generator) -> Params:
+        """An attention + MLP block: a dense layer, or the hybrid's one
+        shared block (one set of weights, applied every ``attn_every``
+        layers)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
         return {
             "norm1": init_norm(cfg, dt, dev),
@@ -90,6 +110,8 @@ class Model:
             "blocks": [self._init_block(gen) for _ in range(cfg.n_layers)],
             "final_norm": init_norm(cfg, dt, self.device),
         }
+        if cfg.family == "hybrid":
+            params["shared_attn"] = self._init_shared_attn(gen)
         if not cfg.tie_embeddings:
             params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
         return params
@@ -115,19 +137,54 @@ class Model:
         h = apply_norm(x, bp["norm2"])
         return x + mlp_forward(bp["mlp"], h, cfg.mlp_gated), (k, v)
 
+    def _mamba_block_full(self, bp: Params, x):
+        y, h_fin, conv = mamba2.mamba_forward(
+            bp["mamba"], apply_norm(x, bp["norm1"]), self.cfg,
+            chunk=self.ssd_chunk)
+        return x + y, h_fin, conv
+
     def backbone(self, params: Params, batch: Dict, *, collect_cache: bool = False):
         """Full-sequence backbone over ``batch["tokens"]`` (B, S).  Returns
-        (hidden, aux, layer_caches) with layer_caches a list of per-layer
-        (k, v) when ``collect_cache``."""
+        (hidden, aux, layer_caches).  With ``collect_cache``, layer_caches
+        is a list of per-layer (k, v) (dense), of per-layer (h, conv)
+        (ssm), or ``(states, kvs)`` with one (k, v) per application of
+        the shared block (hybrid)."""
+        cfg = self.cfg
         x = self.embed_tokens(params, batch["tokens"])
         B, S = x.shape[0], x.shape[1]
-        angles = self.angle_fn(torch.arange(S, device=x.device)[None, :].expand(B, S))
-        kvs = []
+        angles = (self.angle_fn(torch.arange(S, device=x.device)[None, :]
+                                .expand(B, S)) if self.angle_fn else None)
+        if cfg.family == "hybrid":
+            return self._hybrid_backbone(params, x, angles, collect_cache)
+        caches = []
         for bp in params["blocks"]:
-            x, kv = self._attn_block_full(bp, x, angles)
+            if cfg.family == "ssm":
+                x, h_fin, conv = self._mamba_block_full(bp, x)
+                layer_cache = (h_fin, conv)
+            else:
+                x, layer_cache = self._attn_block_full(bp, x, angles)
             if collect_cache:
-                kvs.append(kv)
-        return x, 0.0, (kvs if collect_cache else None)
+                caches.append(layer_cache)
+        return x, 0.0, (caches if collect_cache else None)
+
+    def _hybrid_groups(self):
+        """(first, end) layer ranges; the shared block runs before each."""
+        cfg = self.cfg
+        ae = cfg.attn_every
+        return [(s, min(s + ae, cfg.n_layers))
+                for s in range(0, cfg.n_layers, ae)]
+
+    def _hybrid_backbone(self, params, x, angles, collect_cache):
+        cfg = self.cfg
+        sp = params["shared_attn"]
+        states, kvs = [], []
+        for g0, g1 in self._hybrid_groups():
+            x, kv = self._attn_block_full(sp, x, angles)
+            kvs.append(kv)
+            for bp in params["blocks"][g0:g1]:
+                x, h_fin, conv = self._mamba_block_full(bp, x)
+                states.append((h_fin, conv))
+        return x, 0.0, ((states, kvs) if collect_cache else None)
 
     def forward(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, float]:
         x, aux, _ = self.backbone(params, batch)
@@ -159,10 +216,25 @@ class Model:
         ``kv_dtype`` defaults to the model dtype; ``torch.int8`` stores
         int8 codes plus per-(token, head) f32 scales ``k_scale`` /
         ``v_scale``, shaped like ``k`` without head_dim; on a paged cache
-        they share the block table."""
+        they share the block table.
+
+        ssm and hybrid (contiguous only): the recurrent state ``h`` (L, B,
+        H, P, N) f32 and conv window ``conv`` (L, B, K-1, conv_ch) in the
+        model dtype; the hybrid adds ``k``/``v`` (n_apps, B, kv_len, Hkv,
+        hd), one row per application of the shared block."""
         cfg = self.cfg
         kv_dtype = kv_dtype or self.dtype
         dev = self.device
+        if cfg.family not in ATTENTION_FAMILIES:
+            if slotted or paged:
+                raise NotImplementedError(
+                    "slotted (continuous-batching) caches target the "
+                    f"attention families, got {cfg.family!r}")
+            if kv_dtype == torch.int8:
+                raise NotImplementedError(
+                    f"int8 KV targets the attention families, got "
+                    f"{cfg.family!r}")
+            return self._init_state_cache(batch_size, max_len, kv_dtype)
         if paged:
             if cfg.sliding_window:
                 raise NotImplementedError(
@@ -199,6 +271,26 @@ class Model:
                                            device=dev)
         return cache
 
+    def _init_state_cache(self, batch_size: int, max_len: int,
+                          kv_dtype) -> Cache:
+        cfg, dev = self.cfg, self.device
+        L, B = cfg.n_layers, batch_size
+        cache = {
+            "h": torch.zeros((L, B, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                              cfg.ssm_state), dtype=torch.float32, device=dev),
+            "conv": torch.zeros((L, B, cfg.ssm_conv - 1, cfg.conv_channels),
+                                dtype=self.dtype, device=dev),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev),
+        }
+        if cfg.family == "hybrid":
+            kv_len = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+                      else max_len)
+            shape = (len(self._hybrid_groups()), B, kv_len, cfg.n_kv_heads,
+                     cfg.head_dim)
+            cache["k"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
+            cache["v"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
+        return cache
+
     @staticmethod
     def _page_slab_keys(cache: Cache) -> Tuple[str, ...]:
         """Cache keys indexed (L, n_pages, ...) — everything a page id
@@ -225,7 +317,8 @@ class Model:
         """Populate a contiguous cache from a full prompt, in place;
         returns the last-position logits and the same cache."""
         from repro_torch.quant import kv as kvq
-        x, _, kvs = self.backbone(params, batch, collect_cache=True)
+        cfg = self.cfg
+        x, _, caches = self.backbone(params, batch, collect_cache=True)
         S = x.shape[1]
 
         def place(slab: torch.Tensor, dst: torch.Tensor) -> None:
@@ -239,6 +332,12 @@ class Model:
                 kept = torch.roll(kept, S % kv_len, dims=1)
             dst[:, :s_eff].copy_(kept)
 
+        kvs = caches
+        if cfg.family in ("ssm", "hybrid"):
+            states, kvs = (caches, []) if cfg.family == "ssm" else caches
+            for i, (h, conv) in enumerate(states):
+                cache["h"][i].copy_(h)
+                cache["conv"][i].copy_(conv)
         quantized = "k_scale" in cache
         for i, (k, v) in enumerate(kvs):
             if quantized:
@@ -263,6 +362,10 @@ class Model:
         A paged cache takes the whole prompt as one chunk.  Returns the
         last-position logits (1, 1, V) and the same cache."""
         from repro_torch.quant import kv as kvq
+        if self.cfg.family not in ATTENTION_FAMILIES:
+            raise NotImplementedError(
+                f"prefill_into_slot targets attention families, got "
+                f"{self.cfg.family!r}")
         if "block_table" in cache:
             return self.prefill_chunk_into_slot(params, batch, cache, slot, 0)
         n, S = batch["tokens"].shape
@@ -336,6 +439,11 @@ class Model:
         h = apply_norm(x, bp["norm2"])
         return x + mlp_forward(bp["mlp"], h, cfg.mlp_gated)
 
+    def _mamba_block_decode(self, bp, x, h, conv):
+        y, _, _ = mamba2.mamba_decode_step(
+            bp["mamba"], apply_norm(x, bp["norm1"]), h, conv, self.cfg)
+        return x + y
+
     def _attn_block_decode_paged(self, bp, x, k_pool, v_pool, block_table,
                                  pos, mask, angles, active=None,
                                  k_scale_pool=None, v_scale_pool=None):
@@ -366,16 +474,27 @@ class Model:
         (contiguous: the old row is rewritten; paged: redirected to the
         garbage page) and their position does not advance.  The mask and
         the write slot are computed on the device from ``pos``: the step
-        reads nothing back to the host."""
+        reads nothing back to the host.
+
+        ssm: every layer's state and conv window are updated in place (the
+        SSD core through the SSD-update kernel on the card).  hybrid: the
+        shared block runs before each group of ``attn_every`` Mamba2
+        layers, on its application's row of the contiguous KV cache."""
         cfg = self.cfg
         pos = cache["pos"]
         slotted = pos.dim() == 1
         paged = "block_table" in cache
-        if active is not None and not slotted:
+        if active is not None and (not slotted
+                                   or cfg.family not in ATTENTION_FAMILIES):
             raise NotImplementedError("active-lane masking targets slotted "
-                                      "caches")
+                                      "caches of the attention families")
         x = self.embed_tokens(params, tokens)
         B = x.shape[0]
+        if cfg.family == "ssm":
+            for i, bp in enumerate(params["blocks"]):
+                x = self._mamba_block_decode(bp, x, cache["h"][i],
+                                             cache["conv"][i])
+            return self._decode_head(params, cache, x, active)
         if paged:
             kv_len = cache["block_table"].shape[1] * cache["k"].shape[2]
             ring, write_pos = False, pos
@@ -386,6 +505,15 @@ class Model:
         mask = attn.decode_mask(pos, kv_len, ring=ring)
         positions = pos[:, None] if slotted else pos.reshape(1, 1).expand(B, 1)
         angles = self.angle_fn(positions)
+        if cfg.family == "hybrid":
+            for a, (g0, g1) in enumerate(self._hybrid_groups()):
+                x = self._attn_block_decode(params["shared_attn"], x,
+                                            cache["k"][a], cache["v"][a],
+                                            write_pos, mask, angles)
+                for i in range(g0, g1):
+                    x = self._mamba_block_decode(params["blocks"][i], x,
+                                                 cache["h"][i], cache["conv"][i])
+            return self._decode_head(params, cache, x, active)
         quantized = "k_scale" in cache
         for i, bp in enumerate(params["blocks"]):
             scales = ((cache["k_scale"][i], cache["v_scale"][i]) if quantized
@@ -398,6 +526,11 @@ class Model:
                 x = self._attn_block_decode(bp, x, cache["k"][i], cache["v"][i],
                                             write_pos, mask, angles, *scales,
                                             active=active)
+        return self._decode_head(params, cache, x, active)
+
+    def _decode_head(self, params: Params, cache: Cache, x, active):
+        """Advance the positions in place; final norm and logits."""
+        pos = cache["pos"]
         if active is None:
             pos.add_(1)
         else:

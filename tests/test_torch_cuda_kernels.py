@@ -7,7 +7,9 @@ them (``--noconftest`` skips the suite's jax-importing conftest):
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda_kernels.py
 
 Tolerances, relative to max(1, |plain|): f32 1e-4 (sums in another
-order), bf16 2e-2 (the output is rounded to bf16, spacing 2^-8)."""
+order), bf16 2e-2 (the output is rounded to bf16, spacing 2^-8).  The
+RMSNorm kernel's bf16 output must be within one bf16 spacing of the
+plain version's, element by element."""
 import pytest
 import torch
 
@@ -17,6 +19,10 @@ from repro_torch.kernels.int4_matmul import ops as i4_ops
 from repro_torch.kernels.int4_matmul.ref import int4_matmul_ref
 from repro_torch.kernels.paged_decode_attention import ops as pda_ops
 from repro_torch.kernels.paged_decode_attention import ref as pda_ref
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd_update import ops as ssd_ops
+from repro_torch.kernels.ssd_update.ref import ssd_update_ref
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -142,6 +148,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     k = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
         da_ops.decode_attention(q, k, k, torch.ones(8, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="aligned"):
+        rms_ops.rmsnorm(torch.ones((5, 98), device=cuda), None)
+    with pytest.raises(ValueError, match="aligned"):
+        rms_ops.rmsnorm(torch.ones((2, 3, 65), device=cuda)[:, :, 1:], None)
+    h = torch.zeros((1, 2, 4, 8), device=cuda)
+    x, d = torch.zeros((1, 2, 4), device=cuda), torch.zeros((1, 2), device=cuda)
+    bc = torch.zeros((1, 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="N=8"):
+        ssd_ops.ssd_update(h, x, d, torch.zeros(2, device=cuda), bc, bc)
 
 
 @pytest.mark.parametrize("quant", ["bf16", "int4_fused"])
@@ -222,3 +237,123 @@ def test_paged_scheduler_graph_replays_equal_plain_calls(cuda, kv_quant, K):
     assert graph_launches == 2 * K * cfg.n_layers
     assert plain_launches == K * cfg.n_layers * plain.decode_steps
     assert replayed == plain_launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,parametric,strided", [
+    ((1, 2560), True, False), ((512, 3584), True, False),
+    ((3, 5120), False, False), ((4, 7, 2048), True, True),
+    ((4, 4096), True, False), ((2, 6, 96), False, True)])
+def test_rmsnorm(cuda, dtype, shape, parametric, strided):
+    """Kernel 5 against its plain version: decode and prefill rows, the
+    non-parametric variant and a strided slice (the last position of a
+    batch, read in place)."""
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x = 3 * torch.randn(shape, generator=g, device=cuda)
+    x = (x[:, -1:] if strided else x).to(dtype)
+    w = ((1 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda)).to(dtype)
+         if parametric else None)
+    before = rms_ops.launches
+    out = rms_ops.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rms_ops.launches == before + 1
+    want = rmsnorm_ref(x, w)
+    assert out.shape == x.shape and out.dtype == dtype
+    if dtype == torch.bfloat16:
+        err = (out.float() - want.float()).abs()
+        assert bool(torch.all(err <= want.float().abs() * 2 ** -7 + 1e-30))
+    else:
+        _close(out, want, dtype)
+
+
+def _ssd_case(dev, B, H, P, N, G, dtype, seed, strided=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((B, H, P, N), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((B, H), generator=g, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=g, device=dev))
+    if strided:   # views into one (B, H*P + 2*G*N) row, as the decode step makes
+        row = torch.randn((B, H * P + 2 * G * N), generator=g, device=dev).to(dtype)
+        x = row[:, :H * P].reshape(B, H, P)
+        Bm = row[:, H * P:H * P + G * N].reshape(B, G, N)
+        Cm = row[:, H * P + G * N:].reshape(B, G, N)
+    else:
+        x = torch.randn((B, H, P), generator=g, device=dev).to(dtype)
+        Bm = torch.randn((B, G, N), generator=g, device=dev).to(dtype)
+        Cm = torch.randn((B, G, N), generator=g, device=dev).to(dtype)
+    return h, x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,P,N,G,strided", [
+    (1, 80, 64, 128, 1, True), (2, 64, 64, 64, 1, False),
+    (3, 8, 16, 32, 2, True), (1, 4, 8, 16, 4, False), (2, 6, 5, 24, 3, False)])
+def test_ssd_update(cuda, dtype, B, H, P, N, G, strided):
+    """Kernel 4 against its plain version, out of place and in place (h'
+    written over h); h' is f32 and computed as the plain version does."""
+    h, x, dt, A, Bm, Cm = _ssd_case(cuda, B, H, P, N, G, dtype, B * H + N,
+                                    strided)
+    want_h, want_y = ssd_update_ref(h, x, dt, A, Bm, Cm)
+    before = ssd_ops.launches
+    h_new, y = ssd_ops.ssd_update(h, x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    _close(h_new, want_h, torch.float32)
+    _close(y, want_y, torch.float32)
+    h_in, y2 = ssd_ops.ssd_update(h, x, dt, A, Bm, Cm, out=h)
+    torch.cuda.synchronize()
+    assert h_in is h and torch.equal(h, h_new) and torch.equal(y2, y)
+
+
+def test_ssd_update_full_decay(cuda):
+    """dt*A = -500: exp gives 0 and h' is the input term exactly."""
+    B, H, P, N = 1, 2, 4, 16
+    h = torch.full((B, H, P, N), 100.0, device=cuda)
+    h_new, y = ssd_ops.ssd_update(
+        h, torch.ones((B, H, P), device=cuda), torch.full((B, H), 50.0, device=cuda),
+        torch.full((H,), -10.0, device=cuda), torch.full((B, 1, N), 2.0, device=cuda),
+        torch.ones((B, 1, N), device=cuda), out=h)
+    torch.cuda.synchronize()
+    assert torch.equal(h, torch.full_like(h, 100.0))
+    assert torch.equal(y, torch.full((B, H, P), 100.0 * N, device=cuda))
+
+
+def test_ssm_decode_step_replays_as_a_cuda_graph(cuda):
+    """The mamba2 decode step updates its state and conv window in place
+    and reads nothing back to the host, so it captures as one CUDA graph,
+    kernels 4 and 5 included, and each replay equals an eager step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine
+    cfg = get_config("mamba2-2.7b").reduced().replace(dtype="float32")
+    model = Model(cfg, device=cuda)
+    eng = DecodeEngine(model, model.init(torch.Generator(device=cuda).manual_seed(0)))
+    prompt = {"tokens": torch.arange(16, device=cuda)[None] * 7 % cfg.vocab_size}
+    feed = (5, 9, 3, 200)
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        _, eager_cache = eng.prefill(prompt, 32)
+        want = []
+        for t in feed:
+            tok.fill_(t)
+            want.append(model.decode_step(eng.params, eager_cache, tok)[0].clone())
+        _, warm = eng.prefill(prompt, 32)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model.decode_step(eng.params, warm, tok)
+        torch.cuda.current_stream().wait_stream(side)
+        _, cache = eng.prefill(prompt, 32)
+        graph = torch.cuda.CUDAGraph()
+        before = (ssd_ops.launches, rms_ops.launches)
+        with torch.cuda.graph(graph):
+            logits, _ = model.decode_step(eng.params, cache, tok)
+        for t, w in zip(feed, want):
+            tok.fill_(t)
+            graph.replay()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(logits, w, rtol=1e-5, atol=1e-5)
+    assert int(cache["pos"]) == 16 + len(feed)
+    torch.testing.assert_close(cache["h"], eager_cache["h"], rtol=1e-5, atol=1e-5)
+    assert torch.equal(cache["conv"], eager_cache["conv"])
+    assert ssd_ops.launches == before[0] + cfg.n_layers
+    assert rms_ops.launches == before[1] + 2 * cfg.n_layers + 1

@@ -195,7 +195,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="dispatch"):
         model.step_program(None, None)
     with pytest.raises(NotImplementedError, match="family"):
-        Model(get_config("mamba2-2.7b").reduced(), device=CPU)
+        Model(get_config("qwen2-moe-a2.7b").reduced(), device=CPU)
 
 
 @pytest.mark.parametrize("ring", [False, True])
