@@ -16,9 +16,12 @@ Phases, in order; each raises on failure and nothing catches:
     shared block, S=2081); times of the kernel, the plain version and
     ``F.scaled_dot_product_attention`` (timed only).
  3. int4-matmul kernel against its plain version at the qwen2.5-7b layer
-    shapes, M=1 and M=2048, with codes that hit -8 and 7; times of the
-    kernel, the plain version and ``torch.matmul`` on the bf16
-    dequantised weight (timed only).
+    shapes, M=1 (the GEMV, bf16 and f32) and M=512 and 2048 (the wgmma
+    path: a paged prefill chunk and a prompt), with codes that hit -8 and
+    7; times of the kernel, the plain version and ``torch.matmul`` on the
+    bf16 dequantised weight (timed only), per shape and summed over a
+    layer; the count of HGMMA instructions in the built library (``cuobjdump
+    --dump-sass``) must not be 0.
  4. paged-decode-attention kernel against its plain version in bf16, f32
     and int8 KV at the paged serving shape (4 slots of ~2100 live tokens,
     page 16, G=7, hd 128) and on ragged lengths with a length-0 lane at
@@ -56,10 +59,12 @@ Phases, in order; each raises on failure and nothing catches:
     ``generate_fused``, 32 new tokens each); the decode-attention launch
     count must be 28 x decode steps and the RMSNorm count 57 x (decode
     steps + prefills); first-step logits of "cuda" and "sdpa" must
-    agree; p50 step time against the analytic floor.
+    agree; p50 step time against the analytic floor; wall of a 2048-token
+    prefill (synchronised, median of 3).
 11. the int4 main path: the same model quantised on the card
     (``int4_fused``), one request; the int4 launch count must be 7 x 28
-    per decode step plus the prefill's.
+    per decode step plus the prefill's; wall of a 2048-token prefill
+    (median of 3), which must launch the int4 kernel 7 x 28 times.
 12. the paged serving path at full width: qwen2.5-7b, 28 layers, bf16,
     8 sessions (prompts 2048+, 32+ new tokens) through 4 paged slots,
     page 16, prefill chunk 512, through ``generate_continuous`` twice:
@@ -84,7 +89,8 @@ Phases, in order; each raises on failure and nothing catches:
 15. the kernels line: one JSON object with every ported kernel's
     numbers (all five: no TPU kernel is left to port); ``launches`` sums
     the main paths that run the kernel and ``launches_by_path`` names
-    each path's count.
+    each path's count; the int4 row adds the M=2048 sums (``prefill_*``)
+    and the prefill's launches and walls.
 16. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -174,8 +180,8 @@ def setup():
         + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()))
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or ("spill" in line and " 0 bytes spill stores"
-                                       not in line):
+            if "registers" in line or "wgmma" in line or (
+                    "spill" in line and " 0 bytes spill stores" not in line):
                 log(f"  ptxas {name}: {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -275,15 +281,29 @@ def int4_case(dev, dtype, M, K, N, seed, group=128):
     return x, packed, scales
 
 
+def hgmma_count() -> int:
+    """HGMMA (wgmma) instructions in the built int4_matmul library's SASS."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass", str(_build._lib_path("int4_matmul"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
 def check_int4_matmul(dev, timer):
     from repro_torch.kernels.int4_matmul import ops, ref
     from repro_torch.quant import QuantizedTensor, dequantize
     log("== phase 3: int4 matmul, kernel vs plain (qwen2.5-7b layer shapes)")
+    n_hgmma = hgmma_count()
+    log(f"  HGMMA instructions in the built int4_matmul library: {n_hgmma}")
+    if n_hgmma == 0:
+        raise AssertionError("the int4_matmul library has no wgmma (HGMMA) code")
     codes = ref.unpack_int4_ref(int4_case(dev, torch.bfloat16, 1, 256, 64, 0)[1])
     if int(codes.min()) != -8 or int(codes.max()) != 7:
         raise AssertionError("test codes do not reach -8 and 7")
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
-    for M in (1, 2048):
+    totals = {M: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+              for M in (1, 512, 2048)}
+    for M in totals:
         for dtype in ((torch.bfloat16, torch.float32) if M == 1 else (torch.bfloat16,)):
             for i, (name, K, N) in enumerate(LAYER):
                 x, packed, scales = int4_case(dev, dtype, M, K, N, 10 * M + i)
@@ -292,9 +312,9 @@ def check_int4_matmul(dev, timer):
                 want = ref.int4_matmul_ref(x, packed, scales, 128)
                 err, rel = rel_err(out, want)
                 ok = rel <= TOL[dtype]
-                line = (f"  {str(dtype)[6:]:8s} {name:4s} M={M} K={K} N={N}: "
-                        f"max_abs_err {err:.3g} (tol {TOL[dtype]:g} x "
-                        f"max(1,|plain|)) {'ok' if ok else 'FAIL'}")
+                line = (f"  {str(dtype)[6:]:8s} {name:4s} M={M} K={K} N={N} "
+                        f"({ops.path_for(M, dtype)}): max_abs_err {err:.3g} (tol "
+                        f"{TOL[dtype]:g} x max(1,|plain|)) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     log(line)
                     raise AssertionError(f"int4_matmul {name} M={M} {dtype} disagrees")
@@ -311,22 +331,29 @@ def check_int4_matmul(dev, timer):
                 log(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"torch.matmul(bf16 dequantised) {lib_ms:.4f} ms, bound "
                     f"{b_ms:.4f} ms ({b_by})")
-                if M == 1:
-                    for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                     ("library_ms", lib_ms), ("bound_ms", b_ms)):
-                        totals[key] += val
-                    totals["err"] = max(totals["err"], err)
+                t = totals[M]
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", lib_ms), ("bound_ms", b_ms)):
+                    t[key] += val
+                t["err"] = max(t["err"], err)
                 del w
-    log(f"  one decode layer's 7 int4 matmuls at M=1 (bf16): kernel "
-        f"{totals['ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms, "
-        f"library {totals['library_ms']:.4f} ms, bound {totals['bound_ms']:.4f} ms")
+        t = totals[M]
+        log(f"  one layer's 7 int4 matmuls at M={M} (bf16, {ops.path_for(M, torch.bfloat16)}): "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul "
+            f"{t['library_ms']:.4f} ms ({t['ms'] / t['library_ms']:.2f}x), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%})")
+    dec, pre = totals[1], totals[2048]
     return dict(name="int4_matmul", route="cuda",
                 source="src/repro_torch/csrc/int4_matmul.cu",
                 replaces="src/repro/kernels/int4_matmul/int4_matmul.py:53",
-                max_abs_err=totals["err"], ms=totals["ms"],
-                plain_ms=totals["plain_ms"], bound_ms=totals["bound_ms"],
-                bound_by="bytes", library_ms=totals["library_ms"],
-                shape="sum of the 7 qwen2.5-7b layer matmuls at M=1, bf16")
+                max_abs_err=max(t["err"] for t in totals.values()), ms=dec["ms"],
+                plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
+                bound_by="bytes", library_ms=dec["library_ms"],
+                prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
+                prefill_bound_ms=pre["bound_ms"], prefill_bound_by="operations",
+                prefill_library_ms=pre["library_ms"],
+                shape="sum of the 7 qwen2.5-7b layer matmuls at M=1, bf16; "
+                      "prefill_*: the same at M=2048 (wgmma path)")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -637,6 +664,20 @@ def check_f32_tokens(dev):
     torch.cuda.empty_cache()
 
 
+def prefill_wall(engine, batch, max_len, reps=3):
+    """Median host wall (ms, synchronised) of ``reps`` prefills of batch."""
+    walls = []
+    with torch.inference_mode():
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, cache = engine.prefill(batch, max_len)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            del cache
+    return statistics.median(walls) * 1e3
+
+
 def main_path(dev):
     from repro_torch.configs import get_config
     from repro_torch.core.floor import floor_cell
@@ -684,6 +725,8 @@ def main_path(dev):
     if not (torch.equal(runs[0].tokens, runs[1].tokens)
             and torch.equal(runs[0].tokens, runs[2].tokens)):
         raise AssertionError("streamed and fused greedy tokens differ")
+    pre_bf16 = prefill_wall(engine, batch, max_len)
+    log(f"  prefill of {PROMPT} tokens (bf16): {pre_bf16:.4f} ms wall, median of 3")
     step_s = runs[0].step_times_s + runs[1].step_times_s
     p50 = statistics.median(step_s) * 1e3
     fc = floor_cell(cfg, GPU_H100, PROMPT)
@@ -722,10 +765,19 @@ def main_path(dev):
     engine_q = DecodeEngine(model, params, quant_path="int4_fused")
     torch.cuda.synchronize()
     log(f"  quantised in {time.perf_counter() - t0:.1f} s")
+    per_step = 7 * cfg.n_layers
+    i4_ops.launches = 0
+    pre_int4 = prefill_wall(engine_q, batch, max_len)
+    pre_launches = i4_ops.launches / 3
+    log(f"  prefill of {PROMPT} tokens (int4_fused): {pre_int4:.4f} ms wall, "
+        f"median of 3 (bf16 {pre_bf16:.4f} ms); int4_matmul launches per "
+        f"prefill {pre_launches:g} (7 x {cfg.n_layers} = {per_step})")
+    if pre_launches != per_step:
+        raise AssertionError("the int4 prefill did not run the int4 kernel for "
+                             "every quantised matmul")
     da_ops.launches = i4_ops.launches = 0
     res = engine_q.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True)
     i4_launches, da_q = i4_ops.launches, da_ops.launches
-    per_step = 7 * cfg.n_layers
     want = per_step * (NEW - 1) + per_step
     log(f"  int4_matmul launches {i4_launches} (7 x {cfg.n_layers} x {NEW - 1} "
         f"decode steps + {per_step} at prefill = {want}); decode_attention "
@@ -743,7 +795,9 @@ def main_path(dev):
         f"(floor_cell weight_dtype_bytes=0.5); this path's own bytes (int4 "
         f"linears, bf16 embedding and head, bf16 KV) give {own:.4f} ms; "
         f"{res.tokens_per_s:.2f} tok/s")
-    return da_launches, i4_launches, rms
+    prefill = dict(prefill_launches=pre_launches, prefill_wall_ms=pre_int4,
+                   prefill_wall_bf16_ms=pre_bf16)
+    return da_launches, i4_launches, rms, prefill
 
 
 def device_time(model, engine, batch, max_len, tok, p50_ms, steps=4):
@@ -1184,7 +1238,8 @@ def main() -> int:
     check_f32_tokens(dev)
     check_f32_paged_tokens(dev)
     check_f32_ssm_tokens(dev)
-    da_launches, i4_launches, dense_norms = main_path(dev)
+    da_launches, i4_launches, dense_norms, prefill = main_path(dev)
+    rows[1].update(prefill)
     torch.cuda.empty_cache()
     paged_launches, paged_norms = paged_serving(dev)
     ssm = [ssm_main_path(dev, "mamba2-2.7b", 13),
@@ -1209,7 +1264,8 @@ def main() -> int:
             "shape")
     log(json.dumps({"pending_kernels": PENDING}))
     log(smi.splitlines()[0])
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + tuple(sorted(set(r) - set(keys)))} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,10 @@
 """Wrapper for the fused int4 matmul kernel (``csrc/int4_matmul.cu``).
 
 A CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor
-takes the plain version in ``ref.py``.  ``launches`` counts kernel
-launches (one per call that reached the card).
+takes the plain version in ``ref.py``.  ``path_for`` names the kernel's
+path for a call: the split-K GEMV for M <= 4, the wgmma tensor-core GEMM
+for bf16 x with M > 4, the f32 tiled loop otherwise.  ``launches``
+counts kernel launches (one per call that reached the card).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from repro_torch.kernels.int4_matmul import ref
 GEMV_MAX_M = 4         # rows of x the split-K GEMV serves (kGemvMaxM)
 GEMV_COLS = 256        # output columns per GEMV block (32 lanes x 8)
 GEMV_ROWS = 16         # a K slice is a multiple of this (8 warps x 2 rows)
+WGMMA_GROUP = 16       # the wgmma path's scale group is a multiple of this
+WGMMA_N = 4            # ... and N a multiple of this (4-byte copies)
 
 launches = 0
 
@@ -46,6 +50,14 @@ def split_plan(K: int, N: int, n_sm: int):
     return math.ceil(K / k_split), k_split
 
 
+def path_for(M: int, dtype: torch.dtype) -> str:
+    """The kernel path a call with M rows of x in ``dtype`` takes:
+    "gemv", "wgmma" or "tiled"."""
+    if M <= GEMV_MAX_M:
+        return "gemv"
+    return "wgmma" if dtype == torch.bfloat16 else "tiled"
+
+
 def _check(x, packed, scales, group):
     if x.dim() != 2 or packed.dim() != 2 or scales.dim() != 2:
         raise ValueError("want x (M,K), packed (K//2,N), scales (K//group,N)")
@@ -56,8 +68,12 @@ def _check(x, packed, scales, group):
         raise ValueError(f"shapes x {tuple(x.shape)}, packed "
                          f"{tuple(packed.shape)}, scales {tuple(scales.shape)} "
                          f"do not fit group {group}")
-    if M <= GEMV_MAX_M and N % 8:
+    path = path_for(M, x.dtype)
+    if path == "gemv" and N % 8:
         raise ValueError(f"the GEMV takes N % 8 == 0; got N={N}")
+    if path == "wgmma" and (group % WGMMA_GROUP or N % WGMMA_N):
+        raise ValueError(f"the wgmma path takes group % {WGMMA_GROUP} == 0 "
+                         f"and N % {WGMMA_N} == 0; got group={group}, N={N}")
     if x.dtype not in (torch.bfloat16, torch.float32) or \
             packed.dtype != torch.uint8 or scales.dtype != torch.float32:
         raise TypeError(f"want x bf16/f32, packed uint8, scales f32; got "

@@ -78,6 +78,52 @@ def test_int4_matmul(cuda, dtype, M, K, N, group):
     _close(out, int4_matmul_ref(x, packed, scales, group), dtype)
 
 
+
+def _wgmma_case(dev, M, K, N, group, seed, pow2_scales=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    packed = torch.randint(0, 256, (K // 2, N), generator=g, device=dev,
+                           dtype=torch.uint8)
+    if pow2_scales:   # differ per (group, column) by up to 2^8
+        e = torch.randint(-4, 5, (K // group, N), generator=g, device=dev)
+        scales = 0.01 * torch.pow(2.0, e.float())
+    else:
+        scales = 0.005 + 0.01 * torch.rand((K // group, N), generator=g, device=dev)
+    return x, packed, scales
+
+
+def _wgmma_check(dev, M, K, N, group, seed, pow2_scales=False):
+    x, packed, scales = _wgmma_case(dev, M, K, N, group, seed, pow2_scales)
+    assert i4_ops.path_for(M, x.dtype) == "wgmma"
+    before = i4_ops.launches
+    out = i4_ops.int4_matmul(x, packed, scales, group=group)
+    torch.cuda.synchronize()
+    assert i4_ops.launches == before + 1
+    _close(out, int4_matmul_ref(x, packed, scales, group), torch.bfloat16)
+
+
+@pytest.mark.parametrize("K", [16, 32, 64, 256])
+def test_int4_wgmma_single_tile(cuda, K):
+    """One 64x128 output tile (one warpgroup's rows, the other's padded),
+    group 16: every k16 step starts and ends a scale group.  Checks the
+    shared-memory descriptors and the fragment-to-column map first."""
+    _wgmma_check(cuda, 64, K, 128, 16, K, pow2_scales=True)
+
+
+@pytest.mark.parametrize("M", [64, 512, 2048])
+@pytest.mark.parametrize("name,K,N", [
+    ("wq", 3584, 3584), ("wk", 3584, 512), ("down", 18944, 3584)])
+def test_int4_wgmma_qwen_shapes(cuda, M, name, K, N):
+    _wgmma_check(cuda, M, K, N, 128, M + N)
+
+
+@pytest.mark.parametrize("M,K,N,group", [
+    (512, 3584, 512, 128), (200, 1024, 300, 32), (130, 192, 96, 48)])
+def test_int4_wgmma_per_column_scales(cuda, M, K, N, group):
+    """Scales that differ per (group, column) by powers of two: a wrong
+    fragment-to-column or group map is off by up to 2^8."""
+    _wgmma_check(cuda, M, K, N, group, K + N, pow2_scales=True)
+
 def _paged_case(dev, dtype, quant, B, Hq, Hkv, hd, page, max_blocks, lengths):
     """Pools with a shuffled block table; blocks past each length point
     at page 0, the garbage sentinel."""

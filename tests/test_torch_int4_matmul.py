@@ -5,12 +5,16 @@ CUDA kernel is held against the plain version on the card in
 test_torch_cuda_kernels.py.
 
 Tolerance: the plain matmul in f32 against the oracle and the Pallas
-kernel, 1e-5 relative (sums in another order)."""
+kernel, 1e-5 relative (sums in another order).  The wgmma path's order
+(bf16 x times bf16 codes summed per scale group in f32, then scaled)
+against both at 1e-5 relative to max |out| in f32, and within one bf16
+rounding (2^-8 relative) of the plain version's bf16 output."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.int4_matmul.int4_matmul import int4_matmul_pallas
 from repro.kernels.int4_matmul.ops import int4_matmul as jax_kernel
 from repro.kernels.int4_matmul.ref import int4_matmul_ref as jax_ref
 from repro.quant import quantize as jax_quantize
@@ -95,3 +99,53 @@ def test_split_plan_covers_k():
         splits, k_split = ops.split_plan(K, N, 132)
         assert k_split % ops.GEMV_ROWS == 0
         assert (splits - 1) * k_split < K <= splits * k_split
+
+
+@pytest.mark.parametrize("M,dtype,path", [
+    (1, torch.bfloat16, "gemv"), (4, torch.float32, "gemv"),
+    (5, torch.bfloat16, "wgmma"), (2048, torch.bfloat16, "wgmma"),
+    (5, torch.float32, "tiled"), (512, torch.float32, "tiled")])
+def test_path_for(M, dtype, path):
+    assert ops.path_for(M, dtype) == path
+
+
+@pytest.mark.parametrize("group,N", [(8, 128), (64, 98)])
+def test_wgmma_path_rejects_shapes_it_does_not_take(group, N):
+    x = torch.zeros((8, 128), dtype=torch.bfloat16)
+    packed = torch.zeros((64, N), dtype=torch.uint8)
+    scales = torch.ones((128 // group, N))
+    with pytest.raises(ValueError, match="wgmma"):
+        ops._check(x, packed, scales, group)
+
+
+@pytest.mark.parametrize("M,K,N,group", [
+    (64, 256, 128, 128), (70, 256, 96, 32), (130, 192, 300, 48)])
+def test_scale_after_product_order(M, K, N, group):
+    """The wgmma path's arithmetic: x in bf16 times the exact bf16 codes,
+    summed over each scale group in f32, then scaled per (group, column)
+    and added, against the JAX Pallas kernel (interpret mode) and the
+    plain version on the same bf16 inputs."""
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    packed = torch.from_numpy(rng.integers(0, 256, (K // 2, N), dtype=np.uint8))
+    scales = torch.from_numpy(
+        (0.01 * 2.0 ** rng.integers(-3, 4, (K // group, N))).astype(np.float32))
+    codes = unpack_int4_ref(packed).float()
+    assert int(codes.min()) == -8 and int(codes.max()) == 7
+    xf = x.float()
+    order = sum(
+        (xf[:, g * group:(g + 1) * group] @ codes[g * group:(g + 1) * group])
+        * scales[g] for g in range(K // group))
+    tol = 1e-5 * float(order.abs().max())
+    plain = int4_matmul_ref(xf, packed, scales, group)
+    np.testing.assert_allclose(order.numpy(), plain.numpy(), rtol=0, atol=tol)
+    pallas = np.asarray(int4_matmul_pallas(
+        jnp.asarray(xf.numpy()), jnp.asarray(packed.numpy()),
+        jnp.asarray(scales.numpy()), group=group, bm=M, bn=N, bk=K,
+        interpret=True))
+    np.testing.assert_allclose(order.numpy(), pallas, rtol=0, atol=tol)
+    plain_bf16 = int4_matmul_ref(x, packed, scales, group)
+    assert plain_bf16.dtype == torch.bfloat16
+    np.testing.assert_allclose(plain_bf16.float().numpy(), order.numpy(),
+                               rtol=2.0 ** -8, atol=tol)
