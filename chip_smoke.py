@@ -16,12 +16,18 @@ Phases, in order; each raises on failure and nothing catches:
     shared block, S=2081); times of the kernel, the plain version and
     ``F.scaled_dot_product_attention`` (timed only).
  3. int4-matmul kernel against its plain version at the qwen2.5-7b layer
-    shapes, M=1 (the GEMV, bf16 and f32) and M=512 and 2048 (the wgmma
-    path: a paged prefill chunk and a prompt), with codes that hit -8 and
-    7; times of the kernel, the plain version and ``torch.matmul`` on the
-    bf16 dequantised weight (timed only), per shape and summed over a
-    layer; the count of HGMMA instructions in the built library (``cuobjdump
-    --dump-sass``) must not be 0.
+    shapes, M=1 and M=4 (the GEMV: batch-1 decode and the paged step's 4
+    slots; bf16 and f32, two calls bit-equal, one launch each) and M=512
+    and 2048 (the wgmma path: a paged prefill chunk and a prompt), with
+    codes that hit -8 and 7; times of the kernel, the plain version and
+    ``torch.matmul`` on the bf16 dequantised weight (timed only), per
+    shape and summed over a layer; for the GEMV also ``read_ms`` (one
+    ``torch.sum`` over a buffer of the same packed and scale bytes: the
+    rate this card reaches on them), ``gemv_layer_ms`` (the seven GEMVs
+    back to back between one event pair, L2 flushed once, as a step meets
+    them) and the wrapper's host time per call (196 calls, not
+    synchronised); the count of HGMMA instructions in the built library
+    (``cuobjdump --dump-sass``) must not be 0.
  4. paged-decode-attention kernel against its plain version in bf16, f32
     and int8 KV at the paged serving shape (4 slots of ~2100 live tokens,
     page 16, G=7, hd 128) and on ragged lengths with a length-0 lane at
@@ -64,7 +70,9 @@ Phases, in order; each raises on failure and nothing catches:
 11. the int4 main path: the same model quantised on the card
     (``int4_fused``), one request; the int4 launch count must be 7 x 28
     per decode step plus the prefill's; wall of a 2048-token prefill
-    (median of 3), which must launch the int4 kernel 7 x 28 times.
+    (median of 3), which must launch the int4 kernel 7 x 28 times; the
+    step's device time under torch.profiler (as in phase 10), which must
+    show 7 x 28 GEMV kernels per step and no split-K reduce kernel.
 12. the paged serving path at full width: qwen2.5-7b, 28 layers, bf16,
     8 sessions (prompts 2048+, 32+ new tokens) through 4 paged slots,
     page 16, prefill chunk 512, through ``generate_continuous`` twice:
@@ -92,6 +100,11 @@ Phases, in order; each raises on failure and nothing catches:
     each path's count; the int4 row adds the M=2048 sums (``prefill_*``)
     and the prefill's launches and walls.
 16. last line: ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --only kernels
+
+runs phases 1-6 only and prints the kernels line (launches null) without
+the ``ok`` line: the quick call for tuning a kernel.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Times are CUDA-event medians of 30 runs
@@ -301,20 +314,32 @@ def check_int4_matmul(dev, timer):
     codes = ref.unpack_int4_ref(int4_case(dev, torch.bfloat16, 1, 256, 64, 0)[1])
     if int(codes.min()) != -8 or int(codes.max()) != 7:
         raise AssertionError("test codes do not reach -8 and 7")
-    totals = {M: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
-              for M in (1, 512, 2048)}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    totals = {M: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                      read_ms=0.0, err=0.0)
+              for M in (1, 4, 512, 2048)}
+    shapes = {}
     for M in totals:
-        for dtype in ((torch.bfloat16, torch.float32) if M == 1 else (torch.bfloat16,)):
+        gemv = M <= ops.GEMV_MAX_M
+        for dtype in ((torch.bfloat16, torch.float32) if gemv else (torch.bfloat16,)):
             for i, (name, K, N) in enumerate(LAYER):
                 x, packed, scales = int4_case(dev, dtype, M, K, N, 10 * M + i)
+                before = ops.launches
                 out = ops.int4_matmul(x, packed, scales, group=128)
                 torch.cuda.synchronize()
                 want = ref.int4_matmul_ref(x, packed, scales, 128)
                 err, rel = rel_err(out, want)
-                ok = rel <= TOL[dtype]
+                ok = rel <= TOL[dtype] and ops.launches == before + 1
+                plan = ""
+                if gemv:
+                    plan = f", {ops.split_plan(K, N, n_sm, M)} K slices"
+                    again = ops.int4_matmul(x, packed, scales, group=128)
+                    torch.cuda.synchronize()
+                    ok = ok and torch.equal(again, out)
                 line = (f"  {str(dtype)[6:]:8s} {name:4s} M={M} K={K} N={N} "
-                        f"({ops.path_for(M, dtype)}): max_abs_err {err:.3g} (tol "
-                        f"{TOL[dtype]:g} x max(1,|plain|)) {'ok' if ok else 'FAIL'}")
+                        f"({ops.path_for(M, dtype)}{plan}): max_abs_err {err:.3g} (tol "
+                        f"{TOL[dtype]:g} x max(1,|plain|)"
+                        f"{', repeat bit-equal' if gemv else ''}) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     log(line)
                     raise AssertionError(f"int4_matmul {name} M={M} {dtype} disagrees")
@@ -328,10 +353,24 @@ def check_int4_matmul(dev, timer):
                 lib_ms = timer(lambda: torch.matmul(x, w))
                 nbytes = x.numel() * 2 + packed.numel() + scales.numel() * 4 + M * N * 2
                 b_ms, b_by = bound_ms(nbytes, 2 * M * K * N, torch.bfloat16)
+                extra = ""
+                t = totals[M]
+                if gemv:
+                    # the same weight and scale bytes in one buffer, read by
+                    # one PyTorch call: the rate this card reaches on them
+                    # (viewed as f32; an int32 sum into int64 ran 3x slower)
+                    buf = torch.empty(packed.numel() + scales.numel() * 4,
+                                      dtype=torch.uint8, device=dev).view(torch.float32)
+                    read = timer(lambda: torch.sum(buf))
+                    t["read_ms"] += read
+                    extra = f", read of its bytes (torch.sum) {read:.4f} ms"
+                    shapes.setdefault(name, {})[f"m{M}_ms"] = ms
+                    shapes[name]["read_ms"] = read
+                    shapes[name][f"m{M}_bound_ms"] = b_ms
+                    del buf
                 log(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"torch.matmul(bf16 dequantised) {lib_ms:.4f} ms, bound "
-                    f"{b_ms:.4f} ms ({b_by})")
-                t = totals[M]
+                    f"{b_ms:.4f} ms ({b_by}){extra}")
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                  ("library_ms", lib_ms), ("bound_ms", b_ms)):
                     t[key] += val
@@ -341,19 +380,59 @@ def check_int4_matmul(dev, timer):
         log(f"  one layer's 7 int4 matmuls at M={M} (bf16, {ops.path_for(M, torch.bfloat16)}): "
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.matmul "
             f"{t['library_ms']:.4f} ms ({t['ms'] / t['library_ms']:.2f}x), bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%})")
-    dec, pre = totals[1], totals[2048]
+            f"{t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%})"
+            + (f", read of the same bytes {t['read_ms']:.4f} ms" if gemv else ""))
+    layer, host_us = gemv_layer(dev, timer, ops)
+    dec, m4, pre = totals[1], totals[4], totals[2048]
     return dict(name="int4_matmul", route="cuda",
                 source="src/repro_torch/csrc/int4_matmul.cu",
                 replaces="src/repro/kernels/int4_matmul/int4_matmul.py:53",
                 max_abs_err=max(t["err"] for t in totals.values()), ms=dec["ms"],
                 plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
                 bound_by="bytes", library_ms=dec["library_ms"],
+                read_ms=dec["read_ms"], gemv_layer_ms=layer[1],
+                gemv_m4_ms=m4["ms"], gemv_m4_plain_ms=m4["plain_ms"],
+                gemv_m4_bound_ms=m4["bound_ms"], gemv_m4_library_ms=m4["library_ms"],
+                gemv_layer_m4_ms=layer[4], gemv_host_us=host_us,
+                gemv_shapes=shapes,
                 prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
                 prefill_bound_ms=pre["bound_ms"], prefill_bound_by="operations",
                 prefill_library_ms=pre["library_ms"],
-                shape="sum of the 7 qwen2.5-7b layer matmuls at M=1, bf16; "
-                      "prefill_*: the same at M=2048 (wgmma path)")
+                prefill_m512_ms=totals[512]["ms"],
+                shape="sum of the 7 qwen2.5-7b layer matmuls at M=1, bf16 (the "
+                      "GEMV); gemv_m4_*: the same at M=4; gemv_layer_ms: the 7 "
+                      "back to back, L2 flushed once; read_ms: torch.sum over "
+                      "the same packed and scale bytes; prefill_*: M=2048 "
+                      "(wgmma path)")
+
+
+def gemv_layer(dev, timer, ops):
+    """The seven GEMVs of a layer back to back between one event pair, L2
+    flushed once before (as a decode step meets them), at M=1 and M=4;
+    and the wrapper's host time per call: 28 layers' 196 calls between
+    host clocks, not synchronised."""
+    layer = {}
+    for M in (1, 4):
+        cases = [int4_case(dev, torch.bfloat16, M, K, N, 10 * M + i)
+                 for i, (_, K, N) in enumerate(LAYER)]
+
+        def seven():
+            for x, packed, scales in cases:
+                ops.int4_matmul(x, packed, scales, group=128)
+        layer[M] = timer(seven)
+        log(f"  the layer's 7 GEMVs back to back at M={M} (one event pair, L2 "
+            f"flushed once): {layer[M]:.4f} ms")
+        if M == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(28):
+                seven()
+            host_us = (time.perf_counter() - t0) / 196 * 1e6
+            torch.cuda.synchronize()
+            log(f"  wrapper host time per call (196 calls, not synchronised): "
+                f"{host_us:.2f} us")
+        del cases
+    return layer, host_us
 
 
 # ---------------------------------------------------------------- phase 4
@@ -795,14 +874,28 @@ def main_path(dev):
         f"(floor_cell weight_dtype_bytes=0.5); this path's own bytes (int4 "
         f"linears, bf16 embedding and head, bf16 KV) give {own:.4f} ms; "
         f"{res.tokens_per_s:.2f} tok/s")
+    busy_q, kernels = device_time(model, engine_q, batch, max_len,
+                                  res.tokens[:, :1], p50_q)
+    if kernels:
+        gemv = sum(n for k, n in kernels.items() if "int4_gemv" in k)
+        reduce = sum(n for k, n in kernels.items() if "splitk" in k)
+        log(f"  int4 GEMV kernels per step under the profiler: {gemv:g} (7 x "
+            f"{cfg.n_layers} = {per_step}); split-K reduce kernels: {reduce:g}")
+        if gemv != per_step or reduce:
+            raise AssertionError("the int4 step did not run one GEMV launch per "
+                                 "quantised matmul")
     prefill = dict(prefill_launches=pre_launches, prefill_wall_ms=pre_int4,
-                   prefill_wall_bf16_ms=pre_bf16)
+                   prefill_wall_bf16_ms=pre_bf16, step_device_ms=busy_q,
+                   step_p50_ms=p50_q)
     return da_launches, i4_launches, rms, prefill
 
 
 def device_time(model, engine, batch, max_len, tok, p50_ms, steps=4):
     """Kernel time per decode step under torch.profiler, against the
-    unprofiled p50: the device's busy share of a step."""
+    unprofiled p50: the device's busy share of a step.  Returns the busy
+    ms per step and {kernel name: launches per step}; without device
+    time from the profiler, the steps' span between CUDA events instead
+    (idle gaps included) and no names."""
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
         _, cache = engine.prefill(batch, max_len)
@@ -811,18 +904,27 @@ def device_time(model, engine, batch, max_len, tok, p50_ms, steps=4):
             for _ in range(steps):
                 model.decode_step(engine.params, cache, tok)
             torch.cuda.synchronize()
-    rows = [(e.self_device_time_total, e.key, e.count)
-            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    busy = sum(r[0] for r in rows) / 1e3 / steps
-    if busy == 0:
-        log("  device time per step: not measured (the profiler saw no "
-            "device time)")
-        return
+        rows = [(e.self_device_time_total, e.key, e.count)
+                for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        busy = sum(r[0] for r in rows) / 1e3 / steps
+        if busy == 0:
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            for _ in range(steps):
+                model.decode_step(engine.params, cache, tok)
+            e.record()
+            torch.cuda.synchronize()
+            span = s.elapsed_time(e) / steps
+            log(f"  device time per step: the profiler saw no device time; "
+                f"CUDA events around {steps} steps give {span:.4f} ms per step "
+                f"(idle gaps included) of the {p50_ms:.4f} ms p50 step")
+            return span, {}
     log(f"  device time per step (torch.profiler, {steps} steps): {busy:.4f} ms "
         f"busy of the {p50_ms:.4f} ms p50 step = {busy / p50_ms:.1%}; "
         f"{sum(r[2] for r in rows) // steps} kernels per step")
     for t, name, n in sorted(rows, reverse=True)[:8]:
         log(f"    {t / 1e3 / steps:8.4f} ms/step  {n // steps:5d}x  {name[:90]}")
+    return busy, {name: n / steps for _, name, n in rows}
 
 
 def check_f32_paged_tokens(dev):
@@ -1221,7 +1323,23 @@ def ssm_main_path(dev, name, phase):
 PENDING = []    # TPU kernels still to port: none
 
 
-def main() -> int:
+KEYS = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "shape")
+
+
+def kernels_line(rows) -> str:
+    return json.dumps({"kernels": [
+        {k: r[k] for k in KEYS + tuple(sorted(set(r) - set(KEYS)))} for r in rows]})
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=["kernels"],
+                    help="kernels: phases 1-6 and the kernels line (launches "
+                         "null), no main path and no ok line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1235,6 +1353,12 @@ def main() -> int:
     rows += [check_rmsnorm(dev, timer), check_ssd_update(dev, timer)]
     del timer
     torch.cuda.empty_cache()
+    if args.only == "kernels":
+        for row in rows:
+            row["launches"], row["launches_by_path"] = None, {}
+        log(smi.splitlines()[0])
+        print(kernels_line(rows))
+        return 0
     check_f32_tokens(dev)
     check_f32_paged_tokens(dev)
     check_f32_ssm_tokens(dev)
@@ -1259,13 +1383,9 @@ def main() -> int:
         row["launches"] = sum(counts.values())
         row["launches_by_path"] = counts
         log(f"  {row['name']} launches per main path: {counts}")
-    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "shape")
     log(json.dumps({"pending_kernels": PENDING}))
     log(smi.splitlines()[0])
-    print(json.dumps({"kernels": [
-        {k: r[k] for k in keys + tuple(sorted(set(r) - set(keys)))} for r in rows]}))
+    print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

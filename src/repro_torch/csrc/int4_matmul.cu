@@ -9,15 +9,26 @@
 // weight never exists in device memory.  Three paths, one TPU kernel:
 //
 // M <= 4, `int4_gemv` (decode, the main path's step).  Bound by bytes:
-// K*N/2 packed bytes plus K*N/group*4 scale bytes, 2 flops per weight,
-// far below the ridge.  Each lane takes 8 adjacent columns (one 8-byte
-// load per pair of k rows, a warp reads 256 contiguous bytes) and keeps
-// eight such loads in flight; the 8 warps of a block take consecutive
-// slices of the block's K range for the same 256 columns and add their
-// sums in shared memory.  K is also split over blockIdx.y so that
-// N = 3584 still puts about two blocks on each of the 132 SMs: each split
-// writes f32 partial sums (they stay in L2) that `int4_splitk_reduce`
-// adds in a fixed order (deterministic, no atomics).
+// K*N/2 packed bytes plus K*N/group*4 scale bytes, 2*M flops per weight,
+// far below the ridge; one launch per call.  What held the earlier
+// CUDA-core GEMV (0.1972 ms per qwen2.5-7b layer at M=1 on an H100 80GB
+// HBM3 at 700 W, 18.8% of the bound) was not the loads: with its weights already in L2 it ran no
+// faster, and its instructions (~11 per packed byte: byte_perm, fsub,
+// fmul, FFMA, addresses) kept too few bytes in flight.  So the decode
+// goes to the tensor cores: per 16 columns and k16 step one
+// mma.m16n8k16 (bf16 in, f32 out) whose A fragment is the packed bytes
+// themselves, each byte made an exact bf16 code pair by byte_perm, one
+// LOP3 and one bf16 subtract; x (M <= 4 rows, and for f32 x its bf16
+// remainder) is the B operand, so M = 4 costs what M = 1 costs.  The
+// codes of a scale group are summed in f32 and scaled once.  The K slices
+// of a column tile are added by the block that takes the tile's last
+// ticket, in split order (deterministic, and the tickets are left at 0).
+// A band of packed rows is read nearly in address order, the next band's
+// loads in flight while this one is multiplied; x and scale rows come by
+// cp.async.  `ptxas -v`: 128 registers (two blocks per SM), no spills.
+// Still short of the bound on that card: a 36 MB shape takes ~26 us of
+// kernel time against ~16 us for a bare read of the same bytes in the
+// same order (PERF.md).
 //
 // M > 4 with bf16 x, `int4_gemm_wgmma` (prefill).  Bound by operations:
 // 2*M*K*N flops, 0.965 ms per qwen2.5-7b layer at M = 2048 (954.6 GFLOP
@@ -52,11 +63,11 @@
 
 namespace {
 
-constexpr int kGemvWarps = 8;
-constexpr int kGemvThreads = 32 * kGemvWarps;
-constexpr int kGemvCols = 8;                      // columns per lane
-constexpr int kGemvBlockCols = 32 * kGemvCols;    // columns per block
+constexpr int kGemvThreads = 256;
+constexpr int kGemvWarps = kGemvThreads / 32;
+constexpr int kGemvTile = 128;                    // columns per block (8 x 16 per warp)
 constexpr int kGemvMaxM = 4;                      // rows of x the GEMV serves
+constexpr int kGemvSteps = 2;                     // k16 steps per warp per band
 constexpr int kBM = 64, kBN = 64, kBK = 32, kTiledThreads = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -67,105 +78,306 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 __device__ __forceinline__ float nibble(int v) {  // 4-bit two's complement
   return (float)(v >= 8 ? v - 16 : v);
 }
-// The four low (lo4) or high nibbles of a packed word, each flipped to
-// offset binary (v ^ 8, so the signed code is b - 8) and masked to its
-// byte; column c as a float: the bits 0x4B000000 | b are 2^23 + b.
-__device__ __forceinline__ float code(uint32_t nibbles, int c) {
-  return __int_as_float(__byte_perm(nibbles, 0x4B000000u, 0x7540u | c)) -
-         8388616.f;  // 2^23 + 8
+// 16 packed bytes, read once: no L1 allocation
+__device__ __forceinline__ uint4 ld_stream(const uint8_t* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+// cp.async of 16 (or 4) bytes; an invalid chunk reads nothing and
+// zero-fills (src-size 0).
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// x[k], x[k + 1] as a bf16 pair, and what f32 x loses to it (bf16 x: 0)
+__device__ __forceinline__ void x_pair(const __nv_bfloat16* p, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = *reinterpret_cast<const uint32_t*>(p);
+  lo = 0;
+}
+__device__ __forceinline__ void x_pair(const float* p, uint32_t& hi,
+                                       uint32_t& lo) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  hi = bf16x2_bits(v.x, v.y);
+  const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
+  lo = bf16x2_bits(v.x - h.x, v.y - h.y);
+}
+// Byte c of a 16-byte load (column c; even k in the low nibble, odd k in
+// the high one) as the bf16 pair (code at even k, code at odd k), exact:
+// byte_perm puts the byte in both halves (the high half shifted by 4),
+// one LOP3 keeps each half's low nibble, flips it to offset binary
+// b = v ^ 8 and sets the bits of 128 above it (magic = 0x43084308, kept
+// in a register: LOP3 takes one immediate), and 128 + b - 136 is the
+// code.
+__device__ __forceinline__ uint32_t code_pair(const uint32_t (&w)[4],
+                                              const uint32_t (&w4)[4], int c,
+                                              uint32_t magic) {
+  const int q = c / 4, j = c % 4;
+  const uint32_t r = __byte_perm(w[q], w4[q], j | j << 4 | (4 + j) << 8 | (4 + j) << 12);
+  uint32_t bits;  // (r & 0x000F000F) ^ magic in one LOP3: magic is a register
+  asm("lop3.b32 %0, %1, 0x000F000F, %2, 0x6A;" : "=r"(bits) : "r"(r), "r"(magic));
+  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&bits),
+                                   __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// c (16x8 f32) += a (16x16 bf16, row-major) @ b (16x8 bf16, column-major)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// grid (ceil(N / 256), splits); split y covers k in [y*k_split, +k_split)
-// and warp w the w-th eighth of it.  N % 8 == 0, k_split % 16 == 0,
-// group % 2 == 0.
-template <typename T>
-__global__ void __launch_bounds__(kGemvThreads) int4_gemv(
+// Shared memory of a GEMV block (dynamic): its x rows as bf16 pairs (and
+// the f32 remainders), then the scale rows of the groups it covers.
+__host__ __device__ constexpr int gemv_x_words(int M, int rows) {
+  return (2 * M * rows + 3) / 4 * 4;  // keeps the scale rows 16-byte aligned
+}
+__host__ __device__ constexpr int gemv_smem(int M, int rows, int group) {
+  return gemv_x_words(M, rows) * 4 + 2 * rows / group * kGemvTile * 4;
+}
+
+// grid (ceil(N / 128), splits), 256 threads, gemv_smem(M, rows of the
+// largest split, group) bytes of dynamic shared memory; group % 16 == 0,
+// N % 16 == 0.  Split y owns scale groups [y G / splits, (y + 1) G /
+// splits) of the G = K / group, so splits differ by at most one group;
+// block (t, y) owns columns [128 t, +128) of them.
+//
+// On the tensor cores: out^T (128 x M) = W^T (128 x K) @ x^T, one
+// mma.m16n8k16 per 16 columns and k16 step.  Lane (g = lane / 4, t = lane
+// % 4) of a warp reads columns 16 g..16 g + 15 of packed rows r + t and
+// r + t + 4 of a step of 8 (two 16-byte loads; the warp reads 4 rows x 128
+// contiguous bytes per load), and byte c of them is exactly its A
+// fragment's pair for A-row g (c even) or g + 8 (c odd) of the c/2-th
+// MMA: the K order inside a step is permuted alike in A and in B, so the
+// packed bytes need no shuffle.  B holds x^T: column m < M the bf16 x row
+// m, column 4 + m what f32 x loses to bf16 (0 for bf16 x), so f32 x costs
+// no second MMA.  Each scale group's sums stay in c (f32) and are added
+// as acc += c * scale when the group ends.
+//
+// The block reads its packed rows in bands: warp w takes rows [8 S w,
+// 8 S w + 8 S) of each band of 64 S (S = kGemvSteps), and the next band's
+// loads are issued before this one is used, so the card reads each band
+// nearly in address order.  (A run of rows per thread, far apart, lost
+// half the rate.)  The block's x and scale rows are staged once in shared
+// memory while its first band is on its way.  The warps' sums are added
+// in a fixed order in shared memory.  With splits > 1 each block writes
+// its f32 partial tile to part (splits, M, N); the block that takes the
+// last ticket of its column tile adds the partials in split order, writes
+// out and puts the ticket back to 0, so a call leaves the tickets as it
+// found them (a replayed CUDA graph too).
+template <typename T, int M>
+__global__ void __launch_bounds__(kGemvThreads, 2) int4_gemv(
     const T* __restrict__ x, const uint8_t* __restrict__ packed,
     const float* __restrict__ scales, float* __restrict__ part,
-    T* __restrict__ out, int M, int K, int N, int group, int k_split) {
-  __shared__ float red[kGemvWarps][kGemvMaxM][kGemvBlockCols];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = blockIdx.x * kGemvBlockCols + lane * kGemvCols;
-  const int rows = k_split / kGemvWarps;
-  const int kb = blockIdx.y * k_split + warp * rows;
-  const int ke = min(K, kb + rows);
-  float acc[kGemvMaxM][kGemvCols];
-#pragma unroll
-  for (int m = 0; m < kGemvMaxM; ++m)
-#pragma unroll
-    for (int c = 0; c < kGemvCols; ++c) acc[m][c] = 0.f;
+    int* __restrict__ tickets, T* __restrict__ out, int K, int N, int group) {
+  constexpr int S = kGemvSteps;
+  constexpr bool split_x = std::is_same_v<T, float>;
+  extern __shared__ float4 gemv_smem_raw[];
+  __shared__ float red[kGemvWarps][M][kGemvTile];
+  __shared__ int last;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int grows = group / 2, G = K / group, splits = gridDim.y;
+  const int pb = (int)((long long)blockIdx.y * G / splits) * grows;
+  const int pe = (int)((long long)(blockIdx.y + 1) * G / splits) * grows;
+  const int nrows = pe - pb, band = kGemvWarps * 8 * S;
+  const int t0 = blockIdx.x * kGemvTile, n = t0 + 16 * g;
+  const bool live = n < N;  // N % 16 == 0: a lane's columns are all in or out
+  const int first = pb + warp * 8 * S;
+  uint32_t* xhi = reinterpret_cast<uint32_t*>(gemv_smem_raw);  // [M][nrows]
+  uint32_t* xlo = xhi + M * nrows;                             // [M][nrows]
+  float* ssh = reinterpret_cast<float*>(xhi + gemv_x_words(M, nrows));  // [groups][128]
+  const uint8_t* src = packed + (size_t)t * N + n;
 
-  if (n0 < N) {
-    for (int g0 = kb; g0 < ke;) {  // one scale group at a time
-      const int grp = g0 / group;
-      const int g1 = min(ke, (grp + 1) * group);
-      const float4* sp =
-          reinterpret_cast<const float4*>(scales + (size_t)grp * N + n0);
-      const float4 s0 = sp[0], s1 = sp[1];
-      const float sc[kGemvCols] = {s0.x, s0.y, s0.z, s0.w,
-                                   s1.x, s1.y, s1.z, s1.w};
-#pragma unroll 8
-      for (int kk = g0; kk < g1; kk += 2) {
-        const uint2 w =
-            *reinterpret_cast<const uint2*>(packed + (size_t)(kk / 2) * N + n0);
-        const uint32_t fx = w.x ^ 0x88888888u, fy = w.y ^ 0x88888888u;
-        const uint32_t lo4[2] = {fx & 0x0F0F0F0Fu, fy & 0x0F0F0F0Fu};
-        const uint32_t hi4[2] = {(fx >> 4) & 0x0F0F0F0Fu, (fy >> 4) & 0x0F0F0F0Fu};
-        float lo[kGemvCols], hi[kGemvCols];
+  uint4 wa[S][2], wb[S][2];
+  auto fetch = [&](uint4 (&w)[S][2], int p) {  // steps at rows p + 8 s
 #pragma unroll
-        for (int c = 0; c < kGemvCols; ++c) {
-          lo[c] = code(lo4[c / 4], c % 4) * sc[c];
-          hi[c] = code(hi4[c / 4], c % 4) * sc[c];
-        }
+    for (int s = 0; s < S; ++s)
 #pragma unroll
-        for (int m = 0; m < kGemvMaxM; ++m) {
-          if (m < M) {
-            const float2 xv = load2(x + (size_t)m * K + kk);
-#pragma unroll
-            for (int c = 0; c < kGemvCols; ++c)
-              acc[m][c] += xv.x * lo[c] + xv.y * hi[c];
-          }
-        }
-      }
-      g0 = g1;
+      for (int h = 0; h < 2; ++h)
+        w[s][h] = live && p + 8 * s < pe
+                      ? ld_stream(src + (size_t)(p + 8 * s + 4 * h) * N)
+                      : make_uint4(0u, 0u, 0u, 0u);
+  };
+  fetch(wa, first);
+  // bf16 x rows and the scale rows by cp.async, every copy issued before
+  // any is waited for (a loop of plain loads waited once per row); f32 x
+  // is split into bf16 and remainder on the way
+  for (int i = tid; i < M * nrows; i += kGemvThreads) {
+    const int m = i / nrows, r = i % nrows;
+    const T* xp = x + (size_t)m * K + 2 * (pb + r);
+    if constexpr (split_x) {
+      uint32_t hi, lo;
+      x_pair(xp, hi, lo);
+      xhi[i] = hi;
+      xlo[i] = lo;
+    } else {
+      cp4(xhi + i, xp, true);
     }
   }
-#pragma unroll
-  for (int m = 0; m < kGemvMaxM; ++m)
-    if (m < M)
-#pragma unroll
-      for (int c = 0; c < kGemvCols; ++c)
-        red[warp][m][lane * kGemvCols + c] = acc[m][c];
-  __syncthreads();
-  const int col = blockIdx.x * kGemvBlockCols + threadIdx.x;
-  if (col >= N) return;
-  for (int m = 0; m < M; ++m) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kGemvWarps; ++w) a += red[w][m][threadIdx.x];
-    if (gridDim.y == 1)
-      store(out + (size_t)m * N + col, a);
-    else
-      part[((size_t)blockIdx.y * M + m) * N + col] = a;
+  const int g_lo = pb / grows, n_groups = nrows / grows;
+  for (int i = tid; i < n_groups * kGemvTile / 4; i += kGemvThreads) {
+    const int gi = i / (kGemvTile / 4), c = 4 * (i % (kGemvTile / 4));
+    const bool ok = t0 + c < N;
+    cp16(ssh + 4 * i, ok ? scales + (size_t)(g_lo + gi) * N + t0 + c : scales, ok);
   }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  // B column g: x row g (g < M) or its f32 remainder (split_x, g - 4 < M)
+  const int bm = g < 4 ? g : g - 4;
+  const uint32_t* xb = bm < M && (g < 4 || split_x)
+                           ? (g < 4 ? xhi : xlo) + bm * nrows - pb + t
+                           : nullptr;
+  uint32_t magic;
+  asm("mov.b32 %0, 0x43084308;" : "=r"(magic));
+  float c[8][4], acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[i][e] = acc[i][e] = 0.f;
+  auto flush = [&](int grp) {  // acc += (sums of the group) * scale
+    const float4* sp = reinterpret_cast<const float4*>(
+        ssh + (grp - g_lo) * kGemvTile + 16 * g);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 s4 = sp[q];
+      const float sc[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2) {
+        const int i = 2 * q + i2;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i][e] = fmaf(c[i][e], sc[2 * i2 + e / 2], acc[i][e]);
+          c[i][e] = 0.f;
+        }
+      }
+    }
+  };
+  int grp = first / grows, gnext = (grp + 1) * grows;
+  auto use = [&](const uint4 (&w)[S][2], int p) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int r = p + 8 * s;
+      if (r < pe) {  // the same for the whole warp
+        if (r >= gnext) {  // a new scale group
+          flush(grp);
+          grp = r / grows;
+          gnext = (grp + 1) * grows;
+        }
+        const uint32_t b0 = xb ? xb[r] : 0u, b1 = xb ? xb[r + 4] : 0u;
+        const uint32_t w0[4] = {w[s][0].x, w[s][0].y, w[s][0].z, w[s][0].w};
+        const uint32_t w1[4] = {w[s][1].x, w[s][1].y, w[s][1].z, w[s][1].w};
+        const uint32_t w04[4] = {w0[0] >> 4, w0[1] >> 4, w0[2] >> 4, w0[3] >> 4};
+        const uint32_t w14[4] = {w1[0] >> 4, w1[1] >> 4, w1[2] >> 4, w1[3] >> 4};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const uint32_t a[4] = {code_pair(w0, w04, 2 * i, magic), code_pair(w0, w04, 2 * i + 1, magic),
+                                 code_pair(w1, w14, 2 * i, magic), code_pair(w1, w14, 2 * i + 1, magic)};
+          mma_bf16(c[i], a, b0, b1);
+        }
+      }
+    }
+  };
+  for (int p = first; p < pe; p += 2 * band) {
+    fetch(wb, p + band);
+    use(wa, p);
+    fetch(wa, p + 2 * band);
+    use(wb, p + band);
+  }
+  if (first < pe) flush(grp);
+
+  // acc[i][2 h + e] is (x row 2 t + e, column 16 g + 2 i + h); lanes t and
+  // t + 2 hold the bf16 part and the remainder of the same sums
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], 2);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int m = 2 * t + e;
+    if (t < 2 && m < M)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float2*>(&red[warp][m][16 * g + 2 * i]) =
+            make_float2(acc[i][e], acc[i][2 + e]);
+  }
+  __syncthreads();
+  for (int o = tid; o < M * kGemvTile; o += kGemvThreads) {
+    const int m = o / kGemvTile, col = o % kGemvTile;
+    if (t0 + col >= N) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < kGemvWarps; ++k) v += red[k][m][col];
+    if (splits == 1)
+      store(out + (size_t)m * N + t0 + col, v);
+    else
+      part[((size_t)blockIdx.y * M + m) * N + t0 + col] = v;
+  }
+  if (splits == 1) return;
+  // the ticket: release this block's partials, learn whether it is last
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(tickets + blockIdx.x, 1) == splits - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: thread (column quad q, lane j) adds splits j, j + 8,
+  // ... in order, then the 8 lanes are added in order
+  const int q = tid % (kGemvTile / 4), jl = tid / (kGemvTile / 4);
+  if (t0 + 4 * q < N)
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float* pp = part + (size_t)m * N + t0 + 4 * q;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int s = jl; s < splits; s += kGemvWarps) {
+        const float4 a = __ldcg(reinterpret_cast<const float4*>(pp + (size_t)s * M * N));
+        v.x += a.x, v.y += a.y, v.z += a.z, v.w += a.w;
+      }
+      reinterpret_cast<float4*>(&red[jl][m][4 * q])[0] = v;
+    }
+  __syncthreads();
+  for (int o = tid; o < M * kGemvTile; o += kGemvThreads) {
+    const int m = o / kGemvTile, col = o % kGemvTile;
+    if (t0 + col >= N) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < kGemvWarps; ++k) v += red[k][m][col];
+    store(out + (size_t)m * N + t0 + col, v);
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0;
 }
 
-template <typename T>
-__global__ void int4_splitk_reduce(const float* __restrict__ part,
-                                   T* __restrict__ out, int splits,
-                                   long long mn) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float a = 0.f;
-  for (int s = 0; s < splits; ++s) a += part[(size_t)s * mn + i];
-  store(out + i, a);
-}
 
 // grid (ceil(N / 64), ceil(M / 64)); each thread owns a 4x4 output tile.
 template <typename T>
@@ -247,28 +459,6 @@ constexpr int kWgStages = 3;                     // ring depth
 // per stage, and room to align the base
 constexpr int kWgSmem = kWgStages * kWgStage + 2 * kWgB + 8 * kWgStages + 1024;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// cp.async of 16 (or 4) bytes; an invalid chunk reads nothing and
-// zero-fills (src-size 0).
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 // Thread writes (st.shared and completed cp.async) become visible to
 // wgmma, which reads shared memory through the async proxy.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -607,23 +797,44 @@ cudaError_t x_tensor_map(CUtensorMap* map, const void* x, int M, int K) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+template <typename T, int M>
+cudaError_t gemv_launch(const T* x, const uint8_t* pk, const float* sc,
+                        float* part, int* tickets, T* o, int K, int N,
+                        int group, int splits, cudaStream_t stream) {
+  const int G = K / group;
+  const int smem = gemv_smem(M, (G + splits - 1) / splits * (group / 2), group);
+  static int allowed = 48 * 1024 - (int)sizeof(float) * kGemvWarps * M * kGemvTile;
+  if (smem > allowed) {  // opt in to more shared memory, once per size
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_gemv<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    allowed = smem;
+  }
+  const dim3 grid((N + kGemvTile - 1) / kGemvTile, splits);
+  int4_gemv<T, M><<<grid, kGemvThreads, smem, stream>>>(x, pk, sc, part,
+                                                        tickets, o, K, N, group);
+  return cudaSuccess;
+}
+
 template <typename T>
 int launch(const void* x, const void* packed, const void* scales, void* part,
-           void* out, int M, int K, int N, int group, int splits,
-           int k_split, cudaStream_t stream) {
+           void* tickets, void* out, int M, int K, int N, int group,
+           int splits, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const uint8_t* pk = static_cast<const uint8_t*>(packed);
   const float* sc = static_cast<const float*>(scales);
   T* o = static_cast<T*>(out);
   if (M <= kGemvMaxM) {
-    const dim3 grid((N + kGemvBlockCols - 1) / kGemvBlockCols, splits);
-    int4_gemv<T><<<grid, kGemvThreads, 0, stream>>>(
-        xt, pk, sc, static_cast<float*>(part), o, M, K, N, group, k_split);
-    if (splits > 1) {
-      const long long mn = (long long)M * N;
-      int4_splitk_reduce<T><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-          static_cast<const float*>(part), o, splits, mn);
+    float* pt = static_cast<float*>(part);
+    int* tk = static_cast<int*>(tickets);
+    cudaError_t e = cudaErrorInvalidValue;
+    switch (M) {
+      case 1: e = gemv_launch<T, 1>(xt, pk, sc, pt, tk, o, K, N, group, splits, stream); break;
+      case 2: e = gemv_launch<T, 2>(xt, pk, sc, pt, tk, o, K, N, group, splits, stream); break;
+      case 3: e = gemv_launch<T, 3>(xt, pk, sc, pt, tk, o, K, N, group, splits, stream); break;
+      case 4: e = gemv_launch<T, 4>(xt, pk, sc, pt, tk, o, K, N, group, splits, stream); break;
     }
+    if (e != cudaSuccess) return (int)e;
   } else if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     const dim3 grid((N + kWgBN - 1) / kWgBN, (M + kWgBM - 1) / kWgBM);
     CUtensorMap xmap;
@@ -646,24 +857,29 @@ int launch(const void* x, const void* packed, const void* scales, void* part,
 }  // namespace
 
 // x (M, K) bf16 (is_bf16) or f32; packed (K/2, N) uint8; scales
-// (K/group, N) f32; out (M, N) in x's dtype.  For M <= 4 the GEMV runs with
-// `splits` K-slices of `k_split` rows and, when splits > 1, f32 scratch
-// part (splits, M, N); for M > 4 the wgmma GEMM (bf16, group % 16 == 0,
-// N % 4 == 0) or the tiled loop (f32).  Launches on `stream`, never synchronises,
-// allocates nothing; returns the cudaError_t of the launches.
+// (K/group, N) f32; out (M, N) in x's dtype.  For M <= 4 the GEMV, one
+// launch: K in `splits` slices of whole scale groups (1 <= splits <=
+// K / group; N % 16 == 0, group % 16 == 0); with splits > 1 it takes f32 scratch part
+// (splits, M, N) and ceil(N / 128) int32 tickets, all 0, which it leaves
+// at 0.  For M > 4 the wgmma GEMM (bf16, group % 16 == 0, N % 4 == 0) or
+// the tiled loop (f32).  Launches on `stream`, never synchronises,
+// allocates nothing; returns the cudaError_t of the launch.
 extern "C" int int4_matmul_launch(const void* x, const void* packed,
-                                  const void* scales, void* part, void* out,
-                                  int M, int K, int N, int group, int splits,
-                                  int k_split, int is_bf16, void* stream) {
+                                  const void* scales, void* part,
+                                  void* tickets, void* out, int M, int K,
+                                  int N, int group, int splits, int is_bf16,
+                                  void* stream) {
   if (K % 2 || group % 2 || K % group) return (int)cudaErrorInvalidValue;
-  if (M <= kGemvMaxM && (N % kGemvCols || k_split % (2 * kGemvWarps)))
+  if (M <= kGemvMaxM &&
+      (N % 16 || group % 16 || splits < 1 || splits > K / group ||
+       (splits > 1 && (part == nullptr || tickets == nullptr))))
     return (int)cudaErrorInvalidValue;
   if (M > kGemvMaxM && is_bf16 && (group % 16 || N % 4))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, packed, scales, part, out, M, K, N, group,
-                                 splits, k_split, st);
-  return launch<float>(x, packed, scales, part, out, M, K, N, group, splits,
-                       k_split, st);
+    return launch<__nv_bfloat16>(x, packed, scales, part, tickets, out, M, K,
+                                 N, group, splits, st);
+  return launch<float>(x, packed, scales, part, tickets, out, M, K, N, group,
+                       splits, st);
 }

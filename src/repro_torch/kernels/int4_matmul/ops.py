@@ -2,9 +2,10 @@
 
 A CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor
 takes the plain version in ``ref.py``.  ``path_for`` names the kernel's
-path for a call: the split-K GEMV for M <= 4, the wgmma tensor-core GEMM
-for bf16 x with M > 4, the f32 tiled loop otherwise.  ``launches``
-counts kernel launches (one per call that reached the card).
+path for a call: the split-K GEMV for M <= 4 (one launch: the last block
+of each column tile adds the K slices), the wgmma tensor-core GEMM for
+bf16 x with M > 4, the f32 tiled loop otherwise.  ``launches`` counts
+kernel launches (one per call that reached the card).
 """
 from __future__ import annotations
 
@@ -17,20 +18,25 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.int4_matmul import ref
 
-GEMV_MAX_M = 4         # rows of x the split-K GEMV serves (kGemvMaxM)
-GEMV_COLS = 256        # output columns per GEMV block (32 lanes x 8)
-GEMV_ROWS = 16         # a K slice is a multiple of this (8 warps x 2 rows)
+GEMV_MAX_M = 4         # rows of x the GEMV serves (kGemvMaxM)
+GEMV_TILE = 128        # output columns per GEMV block (8 lanes x 16)
+GEMV_N = 16            # the GEMV takes N a multiple of this (16-byte loads)
+GEMV_GROUP = 16        # ... and the scale group a multiple of this (k16 steps)
+GEMV_BLOCKS_PER_SM = 2   # GEMV blocks an SM holds at once (__launch_bounds__)
+GEMV_SMEM = 96 << 10   # most shared memory a block's x and scale rows may take
+GEMV_TICKETS = 4096    # column tiles the per-device ticket buffer serves
 WGMMA_GROUP = 16       # the wgmma path's scale group is a multiple of this
 WGMMA_N = 4            # ... and N a multiple of this (4-byte copies)
 
 launches = 0
+_tickets = {}          # device index -> int32 (GEMV_TICKETS,), all 0 between calls
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("int4_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.int4_matmul_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.int4_matmul_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.int4_matmul_launch.restype = i
     return lib
 
@@ -40,14 +46,17 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(K: int, N: int, n_sm: int):
-    """(splits, k_split) of the GEMV: K slices of k_split rows (a multiple
-    of GEMV_ROWS), enough of them that about two blocks land on each
-    SM."""
-    col_blocks = math.ceil(N / GEMV_COLS)
-    splits = max(1, min(math.ceil(K / GEMV_ROWS), round(2 * n_sm / col_blocks)))
-    k_split = GEMV_ROWS * math.ceil(K / splits / GEMV_ROWS)
-    return math.ceil(K / k_split), k_split
+def split_plan(K: int, N: int, n_sm: int, M: int = 1, group: int = 128) -> int:
+    """K slices of the GEMV, each a run of whole scale groups (the slices
+    differ by at most one group): as many as let every block of the grid
+    be resident at once (GEMV_BLOCKS_PER_SM on each of n_sm SMs), since
+    each block streams its slice with loads in flight throughout; at
+    least enough that a block's x and scale rows fit GEMV_SMEM."""
+    G, tiles = K // group, math.ceil(N / GEMV_TILE)
+    splits = max(1, GEMV_BLOCKS_PER_SM * n_sm // tiles)
+    # per group: x as bf16 pairs and f32 remainders, one 128-column scale row
+    fit = math.ceil(G * (group // 2 * M * 8 + GEMV_TILE * 4) / GEMV_SMEM)
+    return min(G, max(splits, fit))
 
 
 def path_for(M: int, dtype: torch.dtype) -> str:
@@ -69,8 +78,9 @@ def _check(x, packed, scales, group):
                          f"{tuple(packed.shape)}, scales {tuple(scales.shape)} "
                          f"do not fit group {group}")
     path = path_for(M, x.dtype)
-    if path == "gemv" and N % 8:
-        raise ValueError(f"the GEMV takes N % 8 == 0; got N={N}")
+    if path == "gemv" and (N % GEMV_N or group % GEMV_GROUP):
+        raise ValueError(f"the GEMV takes N % {GEMV_N} == 0 and group % "
+                         f"{GEMV_GROUP} == 0; got N={N}, group={group}")
     if path == "wgmma" and (group % WGMMA_GROUP or N % WGMMA_N):
         raise ValueError(f"the wgmma path takes group % {WGMMA_GROUP} == 0 "
                          f"and N % {WGMMA_N} == 0; got group={group}, N={N}")
@@ -85,6 +95,21 @@ def _check(x, packed, scales, group):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _ticket_buffer(device: torch.device) -> torch.Tensor:
+    """The device's GEMV tickets: allocated zeroed at the first call, which
+    must not be under CUDA-graph capture, and kept; every launch leaves
+    them at 0.  Calls on one device share them, so those calls run in one
+    stream order (as the models' steps and their graphs do)."""
+    buf = _tickets.get(device.index)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("int4_matmul: call the GEMV once before CUDA-graph "
+                               "capture (its first call allocates the tickets)")
+        buf = _tickets[device.index] = torch.zeros(
+            GEMV_TICKETS, dtype=torch.int32, device=device)
+    return buf
+
+
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                 *, group: int = 128) -> torch.Tensor:
     """x (M, K) @ int4-packed (K//2, N) with per-group scales -> (M, N) in
@@ -96,18 +121,24 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     _check(x, packed, scales, group)
     M, K = x.shape
     N = packed.shape[1]
-    splits, k_split = 1, K
+    splits, part, tickets = 1, None, None
     if M <= GEMV_MAX_M:
-        splits, k_split = split_plan(K, N, _sm_count(x.device.index))
-    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+        if math.ceil(N / GEMV_TILE) > GEMV_TICKETS:
+            raise ValueError(f"the GEMV takes N <= {GEMV_TICKETS * GEMV_TILE}")
+        splits = split_plan(K, N, _sm_count(x.device.index), M, group)
+        if splits > 1:
+            part = torch.empty((splits, M, N), dtype=torch.float32,
+                               device=x.device)
+            tickets = _ticket_buffer(x.device)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.int4_matmul_launch(
             x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-            part.data_ptr() if part is not None else None, out.data_ptr(),
-            M, K, N, group, splits, k_split, int(x.dtype == torch.bfloat16),
+            part.data_ptr() if part is not None else None,
+            tickets.data_ptr() if tickets is not None else None,
+            out.data_ptr(), M, K, N, group, splits,
+            int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "int4_matmul")
     global launches

@@ -69,7 +69,7 @@ def test_int4_matmul(cuda, dtype, M, K, N, group):
     packed = torch.randint(0, 256, (K // 2, N), generator=g, device=cuda,
                            dtype=torch.uint8)
     scales = 0.01 + 0.01 * torch.rand((K // group, N), generator=g, device=cuda)
-    if M <= i4_ops.GEMV_MAX_M and N % 8:
+    if M <= i4_ops.GEMV_MAX_M and (N % i4_ops.GEMV_N or group % i4_ops.GEMV_GROUP):
         with pytest.raises(ValueError):
             i4_ops.int4_matmul(x, packed, scales, group=group)
         return
@@ -79,9 +79,10 @@ def test_int4_matmul(cuda, dtype, M, K, N, group):
 
 
 
-def _wgmma_case(dev, M, K, N, group, seed, pow2_scales=False):
+def _wgmma_case(dev, M, K, N, group, seed, pow2_scales=False,
+                dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
     packed = torch.randint(0, 256, (K // 2, N), generator=g, device=dev,
                            dtype=torch.uint8)
     if pow2_scales:   # differ per (group, column) by up to 2^8
@@ -123,6 +124,78 @@ def test_int4_wgmma_per_column_scales(cuda, M, K, N, group):
     """Scales that differ per (group, column) by powers of two: a wrong
     fragment-to-column or group map is off by up to 2^8."""
     _wgmma_check(cuda, M, K, N, group, K + N, pow2_scales=True)
+
+GEMV_LAYER = [("wq", 3584, 3584), ("wk", 3584, 512), ("wv", 3584, 512),
+              ("wo", 3584, 3584), ("gate", 3584, 18944), ("up", 3584, 18944),
+              ("down", 18944, 3584)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [1, 2, 4])
+@pytest.mark.parametrize("name,K,N", GEMV_LAYER)
+def test_int4_gemv_qwen_shapes(cuda, dtype, M, name, K, N):
+    """The GEMV at the qwen2.5-7b layer shapes: one launch per call, two
+    calls bit-equal (the K slices are added in a fixed order)."""
+    x, packed, scales = _wgmma_case(cuda, M, K, N, 128, M + N, dtype=dtype)
+    assert i4_ops.path_for(M, dtype) == "gemv"
+    before = i4_ops.launches
+    out = i4_ops.int4_matmul(x, packed, scales, group=128)
+    again = i4_ops.int4_matmul(x, packed, scales, group=128)
+    torch.cuda.synchronize()
+    assert i4_ops.launches == before + 2
+    assert torch.equal(out, again)
+    _close(out, int4_matmul_ref(x, packed, scales, 128), dtype)
+
+
+@pytest.mark.parametrize("M,K,N,group", [
+    (1, 3584, 512, 128), (4, 1024, 304, 32), (2, 512, 96, 16),
+    (3, 3584, 18944, 128), (4, 18944, 3584, 128)])
+def test_int4_gemv_per_column_scales(cuda, M, K, N, group):
+    """Scales that differ per (group, column) by powers of two: a wrong
+    fragment-to-column or group map is off by up to 2^8."""
+    x, packed, scales = _wgmma_case(cuda, M, K, N, group, K + N, pow2_scales=True)
+    out = i4_ops.int4_matmul(x, packed, scales, group=group)
+    torch.cuda.synchronize()
+    _close(out, int4_matmul_ref(x, packed, scales, group), torch.bfloat16)
+
+
+@pytest.mark.parametrize("M", [1, 4])
+def test_int4_gemv_graph_replay(cuda, M):
+    """One GEMV captured as a CUDA graph and replayed with new x three
+    times: each replay equals an eager call bit for bit, and the tickets
+    are back at 0 after each (K split 28 ways, so every replay uses them)."""
+    K, N = 3584, 512
+    x, packed, scales = _wgmma_case(cuda, M, K, N, 128, 7)
+    assert i4_ops.split_plan(K, N, torch.cuda.get_device_properties(cuda).multi_processor_count,
+                             M) > 1
+    i4_ops.int4_matmul(x, packed, scales, group=128)    # allocates the tickets
+    tickets = i4_ops._tickets[x.device.index]
+    static_x = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = i4_ops.int4_matmul(static_x, packed, scales, group=128)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for _ in range(3):
+        new_x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+        static_x.copy_(new_x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(tickets.abs().sum()) == 0
+        assert torch.equal(out, i4_ops.int4_matmul(new_x, packed, scales, group=128))
+
+
+@pytest.mark.parametrize("M", [1, 4, 64, 512])
+@pytest.mark.parametrize("K,N", [(3584, 512), (18944, 3584)])
+def test_int4_group256(cuda, M, K, N):
+    """Group 256: one scale group spans two of the wgmma path's 128-deep
+    k-tiles and eight of the GEMV's warp chunks; per-(group, column)
+    power-of-two scales against the plain version."""
+    x, packed, scales = _wgmma_case(cuda, M, K, N, 256, M + K, pow2_scales=True)
+    assert i4_ops.path_for(M, x.dtype) == ("gemv" if M <= 4 else "wgmma")
+    out = i4_ops.int4_matmul(x, packed, scales, group=256)
+    torch.cuda.synchronize()
+    _close(out, int4_matmul_ref(x, packed, scales, 256), torch.bfloat16)
+
 
 def _paged_case(dev, dtype, quant, B, Hq, Hkv, hd, page, max_blocks, lengths):
     """Pools with a shuffled block table; blocks past each length point

@@ -5,10 +5,11 @@ CUDA kernel is held against the plain version on the card in
 test_torch_cuda_kernels.py.
 
 Tolerance: the plain matmul in f32 against the oracle and the Pallas
-kernel, 1e-5 relative (sums in another order).  The wgmma path's order
-(bf16 x times bf16 codes summed per scale group in f32, then scaled)
-against both at 1e-5 relative to max |out| in f32, and within one bf16
-rounding (2^-8 relative) of the plain version's bf16 output."""
+kernel, 1e-5 relative (sums in another order).  The wgmma path's and the
+GEMV's order (bf16 x times bf16 codes summed in f32 per scale group or
+per 32 k, then scaled) against both at 1e-5 relative to max |out| in f32,
+and within one bf16 rounding (2^-8 relative) of the plain version's bf16
+output."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,11 +95,30 @@ def test_wrapper_takes_plain_version_on_cpu_and_counts_no_launch():
     assert ops.launches == before
 
 
-def test_split_plan_covers_k():
-    for K, N in [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (32, 8)]:
-        splits, k_split = ops.split_plan(K, N, 132)
-        assert k_split % ops.GEMV_ROWS == 0
-        assert (splits - 1) * k_split < K <= splits * k_split
+QWEN_LAYER = [(3584, 3584), (3584, 512), (3584, 512), (3584, 3584),
+              (3584, 18944), (3584, 18944), (18944, 3584)]   # wq wk wv wo gate up down
+
+
+@pytest.mark.parametrize("M", [1, 4])
+@pytest.mark.parametrize("K,N,group", [(K, N, 128) for K, N in QWEN_LAYER[1:]]
+                         + [(32, 16, 16), (3584, 512, 256)])
+def test_split_plan_covers_k(M, K, N, group):
+    """The GEMV's K slices (as the kernel cuts them: slice y owns scale
+    groups [y G / splits, (y + 1) G / splits)) cover K once, stream the
+    same packed bytes to within one scale group, all fit on 132 SMs at
+    once (one resident wave), and leave every block's x and scale rows
+    within its shared memory."""
+    splits = ops.split_plan(K, N, 132, M, group)
+    G = K // group
+    assert 1 <= splits <= G
+    bounds = [y * G // splits for y in range(splits + 1)]
+    assert bounds[0] == 0 and bounds[-1] == G
+    sizes = [b - a for a, b in zip(bounds, bounds[1:])]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    tiles = -(-N // ops.GEMV_TILE)
+    assert tiles * splits <= ops.GEMV_BLOCKS_PER_SM * 132 or splits == 1
+    rows = max(sizes) * group // 2
+    assert rows * M * 8 + max(sizes) * ops.GEMV_TILE * 4 <= ops.GEMV_SMEM
 
 
 @pytest.mark.parametrize("M,dtype,path", [
@@ -118,13 +138,25 @@ def test_wgmma_path_rejects_shapes_it_does_not_take(group, N):
         ops._check(x, packed, scales, group)
 
 
+@pytest.mark.parametrize("M,group,N", [(1, 8, 128), (4, 16, 24), (2, 2, 64)])
+def test_gemv_rejects_shapes_it_does_not_take(M, group, N):
+    x = torch.zeros((M, 128), dtype=torch.bfloat16)
+    packed = torch.zeros((64, N), dtype=torch.uint8)
+    scales = torch.ones((128 // group, N))
+    with pytest.raises(ValueError, match="GEMV"):
+        ops._check(x, packed, scales, group)
+
+
 @pytest.mark.parametrize("M,K,N,group", [
-    (64, 256, 128, 128), (70, 256, 96, 32), (130, 192, 300, 48)])
+    (64, 256, 128, 128), (70, 256, 96, 32), (130, 192, 300, 48),
+    (1, 512, 128, 128), (4, 384, 96, 64), (1, 256, 64, 16), (4, 512, 48, 256)])
 def test_scale_after_product_order(M, K, N, group):
-    """The wgmma path's arithmetic: x in bf16 times the exact bf16 codes,
-    summed over each scale group in f32, then scaled per (group, column)
-    and added, against the JAX Pallas kernel (interpret mode) and the
-    plain version on the same bf16 inputs."""
+    """The wgmma path's and the GEMV's arithmetic: x in bf16 times the
+    exact bf16 codes, summed in f32 over a chunk of k (the wgmma path a
+    scale group; the GEMV (M <= 4) a warp's 32 k of a band, or the group
+    if smaller), then scaled per (group, column) and added, against the
+    JAX Pallas kernel (interpret mode) and the plain version on the same
+    bf16 inputs."""
     rng = np.random.default_rng(M + K + N)
     x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
                          ).to(torch.bfloat16)
@@ -134,9 +166,10 @@ def test_scale_after_product_order(M, K, N, group):
     codes = unpack_int4_ref(packed).float()
     assert int(codes.min()) == -8 and int(codes.max()) == 7
     xf = x.float()
+    chunk = min(group, 32) if M <= ops.GEMV_MAX_M else group
     order = sum(
-        (xf[:, g * group:(g + 1) * group] @ codes[g * group:(g + 1) * group])
-        * scales[g] for g in range(K // group))
+        (xf[:, k:k + chunk] @ codes[k:k + chunk]) * scales[k // group]
+        for k in range(0, K, chunk))
     tol = 1e-5 * float(order.abs().max())
     plain = int4_matmul_ref(xf, packed, scales, group)
     np.testing.assert_allclose(order.numpy(), plain.numpy(), rtol=0, atol=tol)
