@@ -31,9 +31,12 @@ Phases, in order; each raises on failure and nothing catches:
  4. paged-decode-attention kernel against its plain version in bf16, f32
     and int8 KV at the paged serving shape (4 slots of ~2100 live tokens,
     page 16, G=7, hd 128) and on ragged lengths with a length-0 lane at
-    pages 4, 8 and 32; a poisoned garbage page 0 must leave the output
-    bit-equal; times of the kernel, the plain version and gather +
-    ``F.scaled_dot_product_attention`` (timed only), bf16 and int8.
+    pages 4, 8 and 32, each case with its path (``ops.path_for``: mma for
+    bf16 q, cuda_core for f32); two calls must be bit-equal and a
+    poisoned garbage page 0 must leave the output bit-equal; ptxas'
+    registers and spills of the mma kernel; times of the kernel, the
+    plain version and gather + ``F.scaled_dot_product_attention`` (timed
+    only), bf16 and int8.
  5. RMSNorm kernel against its plain version, bf16 and f32, D in {2048,
     2560, 3584, 4096, 5120} x R in {1, 4, 512, 2048} (every width and row
     count of the main paths), with and without w, and a strided
@@ -82,7 +85,8 @@ Phases, in order; each raises on failure and nothing catches:
     (route, K), its replays must launch the paged kernel 28 times and
     the RMSNorm kernel 57 times per device step (the capture's launches
     times the replays; the profiler must see the same in a steady
-    window), and first-step logits of "cuda" and "sdpa" must agree;
+    window: 28 ``paged_attention_mma`` kernels per device step and no
+    ``paged_merge``), and first-step logits of "cuda" and "sdpa" must agree;
     p50 decode time per token, aggregate tok/s and the device-busy share.
 13. mamba2-2.7b at full width and depth (64 layers, bf16, random weights
     drawn on the card): the requests of phase 10; launches must be 64
@@ -435,6 +439,18 @@ def gemv_layer(dev, timer, ops):
     return layer, host_us
 
 
+def log_kernel_build(source, kernel):
+    """ptxas' registers, shared memory and spills of each instance of
+    ``kernel`` in ``source``'s build log."""
+    from repro_torch.kernels import _build
+    entry = None
+    for line in _build.build_log.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if kernel in line else None
+        elif entry and ("registers" in line or "spill" in line):
+            log(f"  ptxas {kernel} {entry[:60]}: {line.split(':', 1)[-1].strip()}")
+
+
 # ---------------------------------------------------------------- phase 4
 PAGE = 16
 PAGED_LENGTHS = (2100, 2081, 2117, 2064)     # live tokens per slot
@@ -501,12 +517,19 @@ def check_paged_decode_attention(dev, timer):
              ("ragged, length-0 lane, page 32", (300, 33, 0, 2047), 32, 2048)]
     variants = [("bf16", torch.bfloat16, False), ("f32", torch.float32, False),
                 ("int8 KV", torch.bfloat16, True)]
+    log_kernel_build("paged_decode_attention", "paged_attention_mma")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log("  paged_attention_mma at hd 128: blocks per SM (bf16, int8 KV) "
+        f"{[ops._lib().paged_decode_attention_mma_blocks_per_sm(128, q) for q in (0, 1)]}"
+        f"; splits per (slot, KV head) at the serving shape (bf16, int8 KV) "
+        f"{[ops.mma_split_plan(4, 4, PAGED_SPAN, sms, q) for q in (False, True)]}")
     for name, dtype, quant in variants:
         for i, (label, lengths, page, span) in enumerate(cases):
             args = paged_case(dev, dtype, quant, lengths, page, span, seed=i)
             out = ops.paged_decode_attention(*args)
             torch.cuda.synchronize()
             err, rel = rel_err(out, paged_plain(*args))
+            repeat = torch.equal(ops.paged_decode_attention(*args), out)
             zeros = all(bool(out[b].eq(0).all())
                         for b, n in enumerate(lengths) if n == 0)
             k, v, ks, vs = args[1], args[2], args[5], args[6]
@@ -516,11 +539,12 @@ def check_paged_decode_attention(dev, timer):
             poisoned = ops.paged_decode_attention(*args)
             torch.cuda.synchronize()
             same = torch.equal(poisoned, out)
-            ok = rel <= TOL[dtype] and zeros and same
-            log(f"  {name:8s} {label}: lengths {lengths}: max_abs_err {err:.3g} "
+            ok = rel <= TOL[dtype] and zeros and same and repeat
+            log(f"  {name:8s} {label} ({ops.path_for(args[0], args[1])} path): "
+                f"lengths {lengths}: max_abs_err {err:.3g} "
                 f"(tol {TOL[dtype]:g} x max(1,|plain|)), length-0 lanes zero "
-                f"{zeros}, poisoned page 0 bit-equal {same}: "
-                f"{'ok' if ok else 'FAIL'}")
+                f"{zeros}, two calls bit-equal {repeat}, poisoned page 0 "
+                f"bit-equal {same}: {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"paged_decode_attention {name} {label} "
                                      "disagrees")
@@ -552,7 +576,7 @@ def check_paged_decode_attention(dev, timer):
             f"{b_ms:.6f} ms ({b_by}: {nbytes} bytes of live tokens, their "
             f"block-table entries, lengths, q and out)")
         rows.append(dict(
-            name=name, route="cuda",
+            name=name, route="cuda", path=ops.path_for(q, args[1]),
             source="src/repro_torch/csrc/paged_decode_attention.cu",
             replaces="src/repro/kernels/paged_decode_attention/"
                      "paged_decode_attention.py:136",
@@ -1070,10 +1094,12 @@ def paged_window(model, params, reqs, max_len, kw, ticks=3):
     rows = [(e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")]
     busy = sum(r[0] for r in rows) / 1e3 / ticks
-    partial = sum(r[2] for r in rows if "paged_partial" in r[1])
+    kernel2 = sum(r[2] for r in rows if any(
+        n in r[1] for n in ("paged_attention_mma", "paged_partial", "paged_merge")))
+    merges = sum(r[2] for r in rows if "paged_merge" in r[1])
     norms = sum(r[2] for r in rows if "rmsnorm_kernel" in r[1])
-    return (partial / max(dev_steps, 1), norms / max(dev_steps, 1), busy, wall,
-            rows)
+    return (kernel2 / max(dev_steps, 1), merges, norms / max(dev_steps, 1),
+            busy, wall, rows)
 
 
 def paged_serving(dev):
@@ -1150,10 +1176,11 @@ def paged_serving(dev):
         if n_pages is not None and res.preemptions < 1:
             raise AssertionError(f"{label}: the tight pool preempted no one")
         p50 = statistics.median(step_s) * 1e3
-        per_step, norm_step, busy, wall, rows = paged_window(
+        per_step, merges, norm_step, busy, wall, rows = paged_window(
             model, engine.params, reqs, max_len, dict(kw, kv_dtype=kv_dtype))
         log(f"    steady window (4 slots decoding, 3 ticks of {K} device "
-            f"step(s), torch.profiler): {per_step:g} paged-kernel and "
+            f"step(s), torch.profiler): {per_step:g} kernel-2 kernels "
+            f"(paged_attention_mma; {merges} paged_merge in the window) and "
             f"{norm_step:g} RMSNorm-kernel launches per "
             f"device step; device {busy / K:.4f} ms busy per device step = "
             f"{busy / K / p50:.1%} of the unprofiled p50 decode time per token "
@@ -1161,10 +1188,11 @@ def paged_serving(dev):
             f"per step); largest per tick:")
         for t, name, n in sorted(rows, reverse=True)[:6]:
             log(f"      {t / 1e3 / 3:8.4f} ms  {n / 3:6.1f}x  {name[:90]}")
-        if per_step != cfg.n_layers or norm_step != norms:
-            raise AssertionError(f"{label}: {per_step} paged-kernel and "
+        if per_step != cfg.n_layers or merges or norm_step != norms:
+            raise AssertionError(f"{label}: {per_step} kernel-2 kernels "
+                                 f"({merges} merges) and "
                                  f"{norm_step} RMSNorm launches per device step, "
-                                 f"want {cfg.n_layers} and {norms}")
+                                 f"want {cfg.n_layers} (no merge) and {norms}")
         with torch.inference_mode():
             paged_first_step_logits(model, engine.params, reqs, max_len, kv_dtype)
         del engine

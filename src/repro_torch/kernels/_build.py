@@ -17,6 +17,7 @@ wrapper launches its kernel (or when ``build_all`` is called).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,7 +37,8 @@ SOURCES = ("decode_attention", "int4_matmul", "paged_decode_attention",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-# ptxas' per-kernel register / spill report and build seconds, by source
+# ptxas' per-kernel register / spill report (kept beside each library as
+# <name>-<hash>.log) and build seconds, by source
 build_log: Dict[str, str] = {}
 build_seconds: Dict[str, float] = {}
 
@@ -83,6 +85,7 @@ def _finish(name: str, job: Tuple[subprocess.Popen, Path, Path],
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
 
 
@@ -93,8 +96,11 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     with _lock:
         jobs = {n: _start(n) for n in names}
         for n, job in jobs.items():
-            if job is None:
+            if job is None:   # built earlier: its ptxas log lies beside it
                 build_seconds.setdefault(n, 0.0)
+                saved = _lib_path(n).with_suffix(".log")
+                if n not in build_log and saved.exists():
+                    build_log[n] = saved.read_text()
             else:
                 _finish(n, job, t0)
     return {n: build_seconds[n] for n in jobs}
@@ -110,6 +116,14 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(_lib_path(name)))
         return _libs[name]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: what the
+    kernels' split plans fill."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(rc: int, what: str) -> None:

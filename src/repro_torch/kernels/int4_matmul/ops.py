@@ -41,11 +41,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def split_plan(K: int, N: int, n_sm: int, M: int = 1, group: int = 128) -> int:
     """K slices of the GEMV, each a run of whole scale groups (the slices
     differ by at most one group): as many as let every block of the grid
@@ -125,7 +120,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     if M <= GEMV_MAX_M:
         if math.ceil(N / GEMV_TILE) > GEMV_TICKETS:
             raise ValueError(f"the GEMV takes N <= {GEMV_TICKETS * GEMV_TILE}")
-        splits = split_plan(K, N, _sm_count(x.device.index), M, group)
+        splits = split_plan(K, N, _build.sm_count(x.device.index), M, group)
         if splits > 1:
             part = torch.empty((splits, M, N), dtype=torch.float32,
                                device=x.device)

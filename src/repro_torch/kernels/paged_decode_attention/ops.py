@@ -4,9 +4,12 @@ traffic accounting of the two paged routes.
 
 Port of ``repro.kernels.paged_decode_attention.ops``.  A CUDA tensor
 launches the kernel, or the wrapper raises; a CPU tensor takes the plain
-version in ``ref.py``.  ``launches`` counts kernel launches (one per
-call that reached the card; a call recorded into a CUDA graph counts
-once, at capture).
+version in ``ref.py``.  ``path_for`` names the kernel's path for a call:
+"mma" for bf16 q (bf16 or int8 pools; tensor cores, one launch whose
+last block per (slot, KV head) adds the splits' partials through a
+ticket it resets), "cuda_core" for f32 q (f32 or int8 pools; a partial
+and a merge kernel).  ``launches`` counts calls that reached the card (a
+call recorded into a CUDA graph counts once, at capture).
 """
 from __future__ import annotations
 
@@ -21,13 +24,21 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_decode_attention import ref
 
-TILE = 32          # tokens per tile inside a block (kTile in the source)
-MAX_SPLIT = 1024   # most partials the merge kernel takes (kMaxSplit)
+TILE = 32          # tokens per tile of the CUDA-core path (kTile)
+MAX_SPLIT = 1024   # most partials its merge kernel takes (kMaxSplit)
+MMA_UNIT = 16      # tokens per split unit of the mma path (kUnit)
+MMA_MAX_SPLIT = 128  # most splits per (slot, KV head) on the mma path
+# blocks the split plan gives an SM (the kernel fits two): bf16 pools are
+# bound by DRAM and gain from a smaller merge; int8 pools, by widening
+# the codes, from more warps (measured at the serving shape)
+MMA_BLOCKS_PER_SM = {False: 1, True: 2}   # by int8 KV
+MAX_PAIRS = 4096   # most (slot, KV head) pairs: the tickets (kMaxPairs)
 G_MAX = 16         # most query heads per KV head (kGMax)
 HEAD_DIMS = (32, 64, 128)
 PAGE_SIZES = (4, 8, 16, 32)
 
 launches = 0
+_tickets = {}      # device index -> int32 (MAX_PAIRS,), all 0 between calls
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,16 +47,69 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode_attention_launch.argtypes = [
         p, p, p, p, p, p, p, p, p, p, p,
-        i, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+        i, i, i, i, i, i, i, i, ctypes.c_float, i, p]
     lib.paged_decode_attention_launch.restype = i
+    lib.paged_decode_attention_mma_launch.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    lib.paged_decode_attention_mma_launch.restype = i
+    lib.paged_decode_attention_mma_blocks_per_sm.argtypes = [i, i]
+    lib.paged_decode_attention_mma_blocks_per_sm.restype = i
     return lib
 
 
+def path_for(q: torch.Tensor, k_pool: torch.Tensor) -> str:
+    """The kernel path a call with this q and these pools takes: "mma"
+    for bf16 q over bf16 or int8 pools, "cuda_core" for f32 q over f32
+    or int8 pools."""
+    mma = q.dtype == torch.bfloat16 and k_pool.dtype in (torch.bfloat16,
+                                                         torch.int8)
+    return "mma" if mma else "cuda_core"
+
+
 def split_plan(S: int):
-    """(n_split, chunk) over a virtual span of S tokens: one TILE per
-    block unless that would exceed MAX_SPLIT partials."""
+    """The CUDA-core path's (n_split, chunk) over a virtual span of S
+    tokens: one TILE per block unless that would exceed MAX_SPLIT
+    partials."""
     chunk = TILE * math.ceil(math.ceil(S / TILE) / MAX_SPLIT)
     return math.ceil(S / chunk), chunk
+
+
+def mma_split_plan(B: int, Hkv: int, S: int, n_sm: int, quant: bool = False) -> int:
+    """Splits per (slot, KV head) on the mma path: as many as give each of
+    n_sm SMs MMA_BLOCKS_PER_SM[quant] blocks, so every block is resident
+    at once; at most MMA_MAX_SPLIT and one per 16-token unit of the
+    virtual span S.  From the shapes alone: lengths stay on the card, so
+    the call captures."""
+    waves = MMA_BLOCKS_PER_SM[quant] * n_sm // (B * Hkv)
+    return max(1, min(waves, MMA_MAX_SPLIT, math.ceil(S / MMA_UNIT)))
+
+
+def split_range(length: int, split: int, n_split: int):
+    """Tokens [s0, s1) of a slot with ``length`` live tokens that split
+    ``split`` of ``n_split`` takes on the mma path, as the kernel cuts
+    them (``split_range`` in the source): whole 16-token units, the runs
+    differing by at most one unit, clipped to the length."""
+    units = -(-length // MMA_UNIT)
+    s0 = units * split // n_split * MMA_UNIT
+    s1 = min(units * (split + 1) // n_split * MMA_UNIT, length)
+    return s0, s1
+
+
+def _ticket_buffer(device: torch.device) -> torch.Tensor:
+    """The device's tickets of the mma path: allocated zeroed at the
+    first call, which must not be under CUDA-graph capture, and kept;
+    every launch leaves them at 0.  Calls on one device share them, so
+    those calls run in one stream order (as the serving step and its
+    graph do)."""
+    buf = _tickets.get(device.index)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged_decode_attention: call it once before "
+                               "CUDA-graph capture (its first call allocates "
+                               "the tickets)")
+        buf = _tickets[device.index] = torch.zeros(
+            MAX_PAIRS, dtype=torch.int32, device=device)
+    return buf
 
 
 def _check(q, k_pool, v_pool, block_table, lengths, ks, vs):
@@ -107,9 +171,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     in q's dtype.
 
     Reads each slot's pages in place through the block table.  With
-    scale pools (n_pages, page, Hkv) f32 the pools hold int8 codes and
-    the kernel dequantises ``codes * scale`` in registers.  A slot with
-    ``lengths[b] == 0`` gives zeros."""
+    scale pools (n_pages, page, Hkv) f32 the pools hold int8 codes, K
+    and V are ``codes * scale``, and no dequantised copy is written.  A
+    slot with ``lengths[b] == 0`` gives zeros.  ``path_for`` names the
+    kernel path."""
     quant = k_scale_pool is not None
     if q.device.type == "cpu":
         if quant:
@@ -127,23 +192,43 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _, page, Hkv, _ = k_pool.shape
     max_blocks = block_table.shape[1]
     G = Hq // Hkv
-    n_split, chunk = split_plan(max_blocks * page)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty((B, Hkv, n_split, G), **f32)
-    l_part = torch.empty((B, Hkv, n_split, G), **f32)
-    acc_part = torch.empty((B, Hkv, n_split, G, hd), **f32)
     out = torch.empty_like(q)
+    ks = k_scale_pool.data_ptr() if quant else None
+    vs = v_scale_pool.data_ptr() if quant else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    f32 = dict(dtype=torch.float32, device=q.device)
     lib = _lib()
-    with torch.cuda.device(q.device):
-        rc = lib.paged_decode_attention_launch(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale_pool.data_ptr() if quant else None,
-            v_scale_pool.data_ptr() if quant else None,
-            block_table.data_ptr(), lengths.data_ptr(), m_part.data_ptr(),
-            l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(), B,
-            max_blocks, page, Hkv, G, hd, n_split, chunk, hd ** -0.5,
-            int(q.dtype == torch.bfloat16), int(quant),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    if path_for(q, k_pool) == "mma":
+        if B * Hkv > MAX_PAIRS:
+            raise ValueError(f"the mma path takes B * Hkv <= {MAX_PAIRS}")
+        n_split = mma_split_plan(B, Hkv, max_blocks * page,
+                                 _build.sm_count(q.device.index), quant)
+        part_acc = part_ml = tickets = None
+        if n_split > 1:
+            part_acc = torch.empty((B, Hkv, n_split, G, hd), **f32)
+            part_ml = torch.empty((B, Hkv, n_split, 2, G), **f32)
+            tickets = _ticket_buffer(q.device)
+        with torch.cuda.device(q.device):
+            rc = lib.paged_decode_attention_mma_launch(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
+                block_table.data_ptr(), lengths.data_ptr(),
+                part_acc.data_ptr() if part_acc is not None else None,
+                part_ml.data_ptr() if part_ml is not None else None,
+                tickets.data_ptr() if tickets is not None else None,
+                out.data_ptr(), B, max_blocks, page, Hkv, G, hd, n_split,
+                int(quant), stream)
+    else:
+        n_split, chunk = split_plan(max_blocks * page)
+        m_part = torch.empty((B, Hkv, n_split, G), **f32)
+        l_part = torch.empty((B, Hkv, n_split, G), **f32)
+        acc_part = torch.empty((B, Hkv, n_split, G, hd), **f32)
+        with torch.cuda.device(q.device):
+            rc = lib.paged_decode_attention_launch(
+                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
+                block_table.data_ptr(), lengths.data_ptr(), m_part.data_ptr(),
+                l_part.data_ptr(), acc_part.data_ptr(), out.data_ptr(), B,
+                max_blocks, page, Hkv, G, hd, n_split, chunk, hd ** -0.5,
+                int(quant), stream)
     _build.check(rc, "paged_decode_attention")
     global launches
     launches += 1

@@ -228,24 +228,40 @@ def _paged_plain(q, k, v, ks, vs, bt, lens):
     return pda_ref.paged_decode_attention_quant_ref(q, k, v, ks, vs, bt, lens)
 
 
+PAGED_LENGTHS = (2100, 2081, 2117, 2064)   # the paged serving shape's slots
+
+
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Hq,Hkv,hd,page,max_blocks,lengths", [
     (28, 4, 128, 16, 9, (140, 1, 0, 77)), (8, 2, 64, 4, 6, (24, 5, 13)),
-    (16, 2, 32, 8, 5, (40, 39, 0)), (4, 4, 128, 32, 3, (96, 33))])
+    (16, 2, 32, 8, 5, (40, 39, 0)), (4, 4, 128, 32, 3, (96, 33)),
+    (28, 4, 128, 16, 136, PAGED_LENGTHS),            # the serving shape
+    (4, 4, 64, 8, 20, (150, 0, 77)),                 # G = 1
+    (32, 2, 128, 16, 12, (190, 17)),                 # G = 16
+    (28, 4, 128, 16, 136, (1, 63, 64, 65)),          # tile edges
+    # 16 splits a pair: 2048 tokens are 8 units a split, 127-129 are 8-9
+    # units over 16 splits (most hold none)
+    (28, 4, 128, 16, 136, (127, 128, 129, 2048)),
+    (28, 4, 128, 16, 136, (2047, 2049, 2175, 2176))])
 def test_paged_decode_attention(cuda, dtype, quant, Hq, Hkv, hd, page,
                                 max_blocks, lengths):
-    """Kernel 2 against its plain version; the garbage page 0, poisoned,
-    must leave every output bit-equal (it is never read), and a
-    length-0 lane gives zeros."""
+    """Kernel 2 against its plain version, on the path ``path_for``
+    names (mma for bf16 q, cuda_core for f32); two calls are bit-equal;
+    the garbage page 0, poisoned, must leave every output bit-equal (it
+    is never read), and a length-0 lane gives zeros."""
     B = len(lengths)
     q, k, v, ks, vs, bt, lens = _paged_case(cuda, dtype, quant, B, Hq, Hkv, hd,
                                             page, max_blocks, lengths)
+    assert pda_ops.path_for(q, k) == ("mma" if dtype == torch.bfloat16
+                                      else "cuda_core")
     before = pda_ops.launches
     out = pda_ops.paged_decode_attention(q, k, v, bt, lens, ks, vs)
     torch.cuda.synchronize()
     assert pda_ops.launches == before + 1
     _close(out, _paged_plain(q, k, v, ks, vs, bt, lens), dtype)
+    assert torch.equal(pda_ops.paged_decode_attention(q, k, v, bt, lens, ks, vs),
+                       out)
     for i, n in enumerate(lengths):
         if n == 0:
             assert torch.all(out[i] == 0)
@@ -256,6 +272,39 @@ def test_paged_decode_attention(cuda, dtype, quant, Hq, Hkv, hd, page,
     again = pda_ops.paged_decode_attention(q, k, v, bt, lens, ks, vs)
     torch.cuda.synchronize()
     assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_attention_graph_replay(cuda, quant):
+    """One mma-path call at the serving shape captured as a CUDA graph
+    and replayed three times, with lengths and the block table changed in
+    place between replays: each replay equals an eager call bit for bit
+    and agrees with the plain version, and the tickets are back at 0
+    after each."""
+    B, Hq, Hkv, hd, page, max_blocks = 4, 28, 4, 128, 16, 136
+    q, k, v, ks, vs, bt, lens = _paged_case(cuda, torch.bfloat16, quant, B, Hq,
+                                            Hkv, hd, page, max_blocks,
+                                            PAGED_LENGTHS)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pda_ops.mma_split_plan(B, Hkv, max_blocks * page, sms, quant) > 1
+    pda_ops.paged_decode_attention(q, k, v, bt, lens, ks, vs)   # allocates the tickets
+    tickets = pda_ops._tickets[q.device.index]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pda_ops.paged_decode_attention(q, k, v, bt, lens, ks, vs)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for lengths in ((1, 0, 2176, 65), (2100, 17, 0, 1000), (2176, 2176, 2176, 2176)):
+        new_lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        perm = torch.randperm(B * max_blocks, generator=g, device=cuda) + 1
+        live = torch.arange(max_blocks, device=cuda)[None] * page < new_lens[:, None]
+        lens.copy_(new_lens)
+        bt.copy_(torch.where(live, perm.reshape(B, max_blocks), 0))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(tickets.abs().sum()) == 0
+        assert torch.equal(out, pda_ops.paged_decode_attention(q, k, v, bt, lens,
+                                                               ks, vs))
+        _close(out, _paged_plain(q, k, v, ks, vs, bt, lens), torch.bfloat16)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

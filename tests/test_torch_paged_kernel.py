@@ -152,3 +152,49 @@ def test_traffic_accounting_equals_reference(kv_quant):
                 jax_ops.serving_traffic_bytes(trace, jcfg, **kw2)
     assert ops.kv_token_bytes(4, 128, 2, kv_quant) == \
         jax_ops.kv_token_bytes(4, 128, 2, kv_quant)
+
+
+@pytest.mark.parametrize("B,Hkv", [(1, 1), (2, 4), (4, 4), (8, 2), (64, 8)])
+@pytest.mark.parametrize("page", [4, 8, 16, 32])
+def test_mma_split_range_covers_live_tokens(page, B, Hkv):
+    """The mma path's splits, as the kernel cuts them (``split_range``),
+    cover each slot's live tokens once, in split order, in whole
+    16-token units whose runs differ by at most one unit, for every
+    length from 0 to the virtual span."""
+    S = 9 * page
+    n_split = ops.mma_split_plan(B, Hkv, S, 132, quant=B % 2 == 0)
+    for length in range(S + 1):
+        ranges = [ops.split_range(length, s, n_split) for s in range(n_split)]
+        live = [(a, b) for a, b in ranges if a < b]
+        covered = [t for a, b in live for t in range(a, b)]
+        assert covered == list(range(length)), (length, ranges)
+        units = [-(-(b - a) // ops.MMA_UNIT) for a, b in ranges]
+        assert max(units) - min(units) <= 1
+        assert all(a % ops.MMA_UNIT == 0 for a, _ in live)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("B,Hkv,S", [
+    (4, 4, 2176), (1, 4, 2176), (4, 4, 64), (2, 4, 96), (3, 2, 24),
+    (1, 1, 1 << 20), (66, 4, 2176), (4096, 1, 512)])
+def test_mma_split_plan_fits_one_wave(B, Hkv, S, quant):
+    """The mma grid gives each of 132 SMs at most one block (bf16 pools)
+    or two (int8), all resident at once, unless one split per pair is
+    already more; no split is planned past the virtual span's 16-token
+    units; the serving shape (4 slots, 4 KV heads) gets 8 splits per pair
+    over bf16 pools and 16 over int8."""
+    n_split = ops.mma_split_plan(B, Hkv, S, 132, quant)
+    assert 1 <= n_split <= ops.MMA_MAX_SPLIT
+    assert n_split <= -(-S // ops.MMA_UNIT)
+    assert n_split * B * Hkv <= ops.MMA_BLOCKS_PER_SM[quant] * 132 or n_split == 1
+    if (B, Hkv, S) == (4, 4, 2176):
+        assert n_split == (16 if quant else 8)
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype,path", [
+    (torch.bfloat16, torch.bfloat16, "mma"), (torch.bfloat16, torch.int8, "mma"),
+    (torch.float32, torch.float32, "cuda_core"),
+    (torch.float32, torch.int8, "cuda_core")])
+def test_path_for(q_dtype, pool_dtype, path):
+    q = torch.zeros((1, 4, 32), dtype=q_dtype)
+    assert ops.path_for(q, torch.zeros((2, 4, 1, 32), dtype=pool_dtype)) == path
