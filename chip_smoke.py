@@ -11,10 +11,17 @@ Phases, in order; each raises on failure and nothing catches:
     all started together).
  2. decode-attention kernel against its plain version, bf16 and f32, on
     the qwen2.5-7b decode shape and on ragged, per-sequence-mask (one row
-    fully masked), MHA, G=4, G=8 and B=3 shapes, and at the first decode
-    step of both main paths that run it (qwen2.5-7b and zamba2-1.2b's
-    shared block, S=2081); times of the kernel, the plain version and
-    ``F.scaled_dot_product_attention`` (timed only).
+    fully masked), MHA, G=4, G=8, B=3 and sparse-mask (whole splits
+    masked, G=16, hd 32) shapes, and at the first decode step of both
+    main paths that run it (qwen2.5-7b and zamba2-1.2b's shared block,
+    S=2081); each case logs its path (``ops.path_for``: mma for bf16,
+    one tensor-core launch; cuda_core for f32), two calls must be
+    bit-equal, and NaN written into every masked slot's K/V row must
+    leave the output bit-equal (and so within tolerance of the plain
+    version on the clean cache); ptxas' registers and spills of
+    ``decode_attention_mma``; times of the kernel, the plain version and
+    ``F.scaled_dot_product_attention`` (timed only) at both main paths'
+    shapes.
  3. int4-matmul kernel against its plain version at the qwen2.5-7b layer
     shapes, M=1 and M=4 (the GEMV: batch-1 decode and the paged step's 4
     slots; bf16 and f32, two calls bit-equal, one launch each) and M=512
@@ -69,7 +76,9 @@ Phases, in order; each raises on failure and nothing catches:
     count must be 28 x decode steps and the RMSNorm count 57 x (decode
     steps + prefills); first-step logits of "cuda" and "sdpa" must
     agree; p50 step time against the analytic floor; wall of a 2048-token
-    prefill (synchronised, median of 3).
+    prefill (synchronised, median of 3); the step under torch.profiler
+    must show 28 ``decode_attention_mma`` kernels and no
+    ``decode_attention_merge``.
 11. the int4 main path: the same model quantised on the card
     (``int4_fused``), one request; the int4 launch count must be 7 x 28
     per decode step plus the prefill's; wall of a 2048-token prefill
@@ -97,7 +106,8 @@ Phases, in order; each raises on failure and nothing catches:
     step against the floor, device time per step.
 14. zamba2-1.2b at full width and depth (38 Mamba2 layers, 7 applications
     of the shared attention block): the same, with 38 SSD updates, 7
-    decode attentions and 91 RMSNorms per decode step.
+    decode attentions and 91 RMSNorms per decode step; the profiled step
+    must show 7 ``decode_attention_mma`` kernels and no merge.
 15. the kernels line: one JSON object with every ported kernel's
     numbers (all five: no TPU kernel is left to port); ``launches`` sums
     the main paths that run the kernel and ``launches_by_path`` names
@@ -219,10 +229,16 @@ def check_decode_attention(dev, timer):
 
     from repro_torch.kernels.decode_attention import ops, ref
     log("== phase 2: decode attention, kernel vs plain")
+    log_kernel_build("decode_attention", "decode_attention_mma")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log("  decode_attention_mma blocks per SM (hd 32, 64, 128) "
+        f"{[ops._lib().decode_attention_mma_blocks_per_sm(hd) for hd in (32, 64, 128)]}")
     S_main = PROMPT + NEW + 1
     gm = torch.Generator().manual_seed(0)
     ragged = torch.rand((2, 2048), generator=gm) < 0.6
     ragged[1] = False
+    holes = torch.rand((2, S_main), generator=gm) < 0.3
+    holes[0, 300:1500] = False
     cases = [
         ("qwen2.5-7b S=2048", 1, 28, 4, 128, 2048, torch.ones(2048, dtype=torch.bool)),
         ("S=2047 ragged", 1, 28, 4, 128, 2047, torch.ones(2047, dtype=torch.bool)),
@@ -234,6 +250,8 @@ def check_decode_attention(dev, timer):
          torch.arange(2048) < 1500),
         ("B=3", 3, 28, 4, 128, 1000,
          torch.arange(1000)[None, :] < torch.tensor([[1000], [517], [1]])),
+        ("sparse mask, 1200 masked slots in a run (empty splits), G=16 hd 32", 2, 32, 2,
+         32, S_main, holes),
         ("zamba2-1.2b shared block: S=2081, first decode step", 1, 32, 32, 64,
          S_main, torch.arange(S_main) <= PROMPT),
         ("main path: S=2081, first decode step", 1, 28, 4, 128, S_main,
@@ -242,45 +260,67 @@ def check_decode_attention(dev, timer):
     for dtype in (torch.bfloat16, torch.float32):
         for i, (label, B, Hq, Hkv, hd, S, mask) in enumerate(cases):
             q, k, v, m = attention_case(dev, dtype, B, Hq, Hkv, hd, S, mask, i)
+            path = ops.path_for(q, k)
             out = ops.decode_attention(q, k, v, m)
             torch.cuda.synchronize()
             want = ref.decode_attention_ref(q, k, v, m)
             err, rel = rel_err(out, want)
-            ok = rel <= TOL[dtype]
+            ok = rel <= TOL[dtype] and path == ("mma" if dtype == torch.bfloat16
+                                                else "cuda_core")
             if mask.dim() == 2:
                 dead = ~mask.any(dim=1)
                 ok = ok and bool(out[dead.to(dev)].eq(0).all())
-            log(f"  {str(dtype)[6:]:8s} {label}: B={B} Hq={Hq} Hkv={Hkv} hd={hd} "
-                f"S={S}: max_abs_err {err:.3g} (tol {TOL[dtype]:g} x max(1,|plain|)) "
-                f"{'ok' if ok else 'FAIL'}")
+            repeat = torch.equal(ops.decode_attention(q, k, v, m), out)
+            # NaN in every masked slot's K/V row: never read, so the output
+            # stays bit-equal and within tolerance of the plain version on
+            # the clean cache
+            masked = ~m.reshape(-1, S).expand(B, S)
+            k[masked], v[masked] = float("nan"), float("nan")
+            poisoned = ops.decode_attention(q, k, v, m)
+            torch.cuda.synchronize()
+            nan_ok = torch.equal(poisoned, out) and rel_err(poisoned, want)[1] <= TOL[dtype]
+            ok = ok and repeat and nan_ok
+            log(f"  {str(dtype)[6:]:8s} {label} ({path} path): B={B} Hq={Hq} Hkv={Hkv} "
+                f"hd={hd} S={S}: max_abs_err {err:.3g} (tol {TOL[dtype]:g} x "
+                f"max(1,|plain|)), two calls bit-equal {repeat}, NaN in the "
+                f"{int(masked.sum())} masked rows: bit-equal and within tol of the "
+                f"plain version on the clean cache {nan_ok}: {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"decode_attention {label} {dtype} disagrees")
+            del q, k, v, m
 
-    # times at the main path's shape (bf16, first decode step)
-    label, B, Hq, Hkv, hd, S, mask = cases[-1]
-    q, k, v, m = attention_case(dev, torch.bfloat16, B, Hq, Hkv, hd, S, mask, 99)
-    out = ops.decode_attention(q, k, v, m)
-    err, _ = rel_err(out, ref.decode_attention_ref(q, k, v, m))
-    ms = timer(lambda: ops.decode_attention(q, k, v, m))
-    plain_ms = timer(lambda: ref.decode_attention_ref(q, k, v, m))
-    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-    am = m.reshape(1, 1, 1, S)
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=am, enable_gqa=True))
-    n_valid = int(m.sum()) * B
-    nbytes = (q.numel() * 2 + 2 * n_valid * Hkv * hd * 2 + m.numel()
-              + out.numel() * 2)
-    flops = 4 * B * Hq * (n_valid // B) * hd
-    b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
-    log(f"  times at {label} (bf16, {n_valid} valid slots): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, F.scaled_dot_product_attention {lib_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.3f} MB)")
-    return dict(name="decode_attention", route="cuda",
+    # times at both main paths' shapes (bf16, first decode step)
+    at = {}
+    for label, B, Hq, Hkv, hd, S, mask in cases[-2:]:
+        q, k, v, m = attention_case(dev, torch.bfloat16, B, Hq, Hkv, hd, S, mask, 99)
+        out = ops.decode_attention(q, k, v, m)
+        err, _ = rel_err(out, ref.decode_attention_ref(q, k, v, m))
+        ms = timer(lambda: ops.decode_attention(q, k, v, m))
+        plain_ms = timer(lambda: ref.decode_attention_ref(q, k, v, m))
+        qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        am = m.reshape(1, 1, 1, S)
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=am, enable_gqa=True))
+        n_valid = int(m.sum()) * B
+        nbytes = (q.numel() * 2 + 2 * n_valid * Hkv * hd * 2 + m.numel()
+                  + out.numel() * 2)
+        flops = 4 * B * Hq * (n_valid // B) * hd
+        b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
+        n_split = ops.mma_split_plan(B, Hkv, S, sms)
+        log(f"  times at {label} (bf16, {n_valid} valid slots, {n_split} splits, "
+            f"{ops.path_for(q, k)} path): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}: {nbytes / 1e6:.3f} MB)")
+        at[Hkv] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms, n_split=n_split,
+                       shape=f"bf16 B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S}, "
+                             f"{n_valid} valid")
+        del q, k, v, m
+    main, zamba = at[4], at[32]
+    return dict(name="decode_attention", route="cuda", path="mma",
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention/decode_attention.py:64",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms,
-                shape=f"bf16 B=1 Hq=28 Hkv=4 hd=128 S={S}, {n_valid} valid")
+                **main, **{f"zamba2_{k}": v for k, v in zamba.items()})
 
 
 # ---------------------------------------------------------------- phase 3
@@ -860,7 +900,8 @@ def main_path(dev):
         f"(tol 5e-2 x max|logit|)")
     if diff > 5e-2 * scale:
         raise AssertionError("bf16 first-step logits of cuda and sdpa disagree")
-    device_time(model, engine, batch, max_len, tok, p50)
+    _, kernels = device_time(model, engine, batch, max_len, tok, p50)
+    check_attention_kernels(kernels, cfg.n_layers, "qwen2.5-7b bf16 step")
     torch.cuda.empty_cache()
 
     log("== phase 11: int4 main path (int4_fused, quantised on the card)")
@@ -949,6 +990,21 @@ def device_time(model, engine, batch, max_len, tok, p50_ms, steps=4):
     for t, name, n in sorted(rows, reverse=True)[:8]:
         log(f"    {t / 1e3 / steps:8.4f} ms/step  {n // steps:5d}x  {name[:90]}")
     return busy, {name: n / steps for _, name, n in rows}
+
+
+def check_attention_kernels(kernels, per_step, where):
+    """Kernel 1 in a profiled bf16 decode step: ``per_step``
+    ``decode_attention_mma`` kernels (one launch per call) and no
+    CUDA-core partial or merge kernel."""
+    mma = sum(n for k, n in kernels.items() if "decode_attention_mma" in k)
+    pair = sum(n for k, n in kernels.items()
+               if "decode_attention_partial" in k or "decode_attention_merge" in k)
+    log(f"  {where}: decode_attention_mma kernels per step under the profiler "
+        f"{mma:g} (want {per_step}); decode_attention_partial/merge kernels {pair:g} "
+        "(want 0)")
+    if mma != per_step or pair:
+        raise AssertionError(f"{where}: kernel 1 was not one decode_attention_mma "
+                             "launch per attention call")
 
 
 def check_f32_paged_tokens(dev):
@@ -1341,7 +1397,9 @@ def ssm_main_path(dev, name, phase):
         raise AssertionError(f"{name}: first-step logits of the card and the "
                              "CPU disagree")
     del cache, cpu_cache, cpu_model
-    device_time(model, engine, batch, max_len, tok, p50)
+    _, kernels = device_time(model, engine, batch, max_len, tok, p50)
+    if n_apps:
+        check_attention_kernels(kernels, n_apps, f"{name} step")
     del params, engine, model
     torch.cuda.empty_cache()
     return counts

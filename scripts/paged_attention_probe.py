@@ -102,19 +102,20 @@ extern "C" int probe_ts_clear() {
 """
 
 
-def timeline_source(text: str) -> str:
-    """The kernel's source with a STAMP(k) at each point of STAMPS (after
-    the anchor when the flag is set, else before it)."""
-    for k, (name, anchor, after) in enumerate(STAMPS):
+def timeline_source(text: str, stamps=STAMPS, first="tile == 0") -> str:
+    """The kernel's source with a STAMP(k) at each point of ``stamps``
+    (after the anchor when the flag is set, else before it); the point
+    "first tile in" is stamped only where ``first`` holds."""
+    for k, (name, anchor, after) in enumerate(stamps):
         if text.count(anchor) != 1:
             raise SystemExit(f"timeline anchor {anchor!r} is not in the source once")
-        stamp = f"  if (tile == 0) STAMP({k});\n" if name == "first tile in" else f"  STAMP({k});\n"
+        stamp = f"  if ({first}) STAMP({k});\n" if name == "first tile in" else f"  STAMP({k});\n"
         text = text.replace(anchor, anchor + stamp if after else stamp + anchor)
     head = text.index("namespace {")
     return text[:head] + TIMELINE_HEAD + text[head:] + TIMELINE_TAIL
 
 
-def timeline(lib, run, flush, n_blocks: int) -> dict:
+def timeline(lib, run, flush, n_blocks: int, stamps=STAMPS) -> dict:
     """One call after warm-up with L2 flushed: per point, the median and
     the largest time (us) since the first block's entry, over blocks."""
     import numpy as np
@@ -129,7 +130,7 @@ def timeline(lib, run, flush, n_blocks: int) -> dict:
     ts = buf.reshape(n_blocks, 8).astype(np.float64)
     t0 = ts[:, 0].min()
     out = {}
-    for k, (name, _, _) in enumerate(STAMPS):
+    for k, (name, _, _) in enumerate(stamps):
         hit = ts[:, k] > 0
         if hit.any():
             rel = (ts[hit, k] - t0) / 1e3
@@ -138,19 +139,26 @@ def timeline(lib, run, flush, n_blocks: int) -> dict:
     return out
 
 
-def build(text: str, name: str) -> ctypes.CDLL:
+def compile_copy(text: str, name: str, kernel: str) -> ctypes.CDLL:
+    """Build ``text`` (a copy of a source in csrc/, whose headers it
+    includes) into ``build/probe/<name>.so`` and load it; prints ptxas'
+    registers and spills of ``kernel``'s instances."""
     BUILD.mkdir(parents=True, exist_ok=True)
     src, lib = BUILD / f"{name}.cu", BUILD / f"{name}.so"
     src.write_text(text)
-    done = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib),
-                           str(src)], check=True, capture_output=True, text=True)
+    done = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                           "-o", str(lib), str(src)], check=True, capture_output=True, text=True)
     entry = None
-    for line in (done.stdout + done.stderr).splitlines():   # ptxas -v of the mma kernel
+    for line in (done.stdout + done.stderr).splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "paged_attention_mma" in line else None
+            entry = line.split("'")[1] if kernel in line else None
         elif entry and ("registers" in line or "spill" in line):
             print(f"{name} {entry[:60]}: {line.split(':', 1)[-1].strip()}", flush=True)
-    cdll = ctypes.CDLL(str(lib))
+    return ctypes.CDLL(str(lib))
+
+
+def build(text: str, name: str) -> ctypes.CDLL:
+    cdll = compile_copy(text, name, "paged_attention_mma")
     p, i = ctypes.c_void_p, ctypes.c_int
     cdll.paged_decode_attention_mma_launch.argtypes = [
         p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]

@@ -6,10 +6,11 @@ shared library with a plain C interface and loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so a
-changed source is rebuilt at its next use and an unchanged one is
-loaded as it is.  Builds go into ``build/kernels/`` at the root of the
-checkout.  ``build_all`` starts one ``nvcc`` per source, all at once.
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source or header is rebuilt
+at its next use and an unchanged one is loaded as it is.  Builds go into
+``build/kernels/`` at the root of the checkout.  ``build_all`` starts one
+``nvcc`` per source, all at once.
 
 Nothing here runs at import time: a library is built the first time a
 wrapper launches its kernel (or when ``build_all`` is called).
@@ -56,7 +57,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    every ``csrc/*.cuh`` header it may include, and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{tag}.so"
 
@@ -124,6 +128,23 @@ def sm_count(index: int) -> int:
     kernels' split plans fill."""
     import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ticket_buffer(tickets: dict, device, size: int, what: str):
+    """The tickets on ``device`` of a kernel whose last block by ticket
+    adds the others' partials (``tickets`` is that kernel's own store, by
+    device index): int32 (size,), allocated zeroed at the first call,
+    which must not be under CUDA-graph capture, and kept; every launch
+    leaves them at 0.  Calls on one device share them, so those calls run
+    in one stream order (as the models' steps and their graphs do)."""
+    import torch
+    buf = tickets.get(device.index)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what}: call it once before CUDA-graph capture "
+                               "(its first call allocates the tickets)")
+        buf = tickets[device.index] = torch.zeros(size, dtype=torch.int32, device=device)
+    return buf
 
 
 def check(rc: int, what: str) -> None:

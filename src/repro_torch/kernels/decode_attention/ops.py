@@ -1,8 +1,12 @@
 """Wrapper for the decode-attention kernel (``csrc/decode_attention.cu``).
 
 A CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor
-takes the plain version in ``ref.py``.  ``launches`` counts kernel
-launches (one per call that reached the card).
+takes the plain version in ``ref.py``.  ``path_for`` names the kernel's
+path for a call: "mma" for bf16 q (tensor cores, one launch whose last
+block per (b, KV head) adds the splits' partials through a ticket it
+resets), "cuda_core" for f32 q (a partial and a merge kernel).
+``launches`` counts calls that reached the card (a call recorded into a
+CUDA graph counts once, at capture).
 """
 from __future__ import annotations
 
@@ -15,31 +19,71 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import ref
 
-TILE = 32          # tokens per tile inside a block (kTile in the source)
-MAX_SPLIT = 1024   # most partials the merge kernel takes (kMaxSplit)
+TILE = 32          # tokens per tile of the CUDA-core path (kTile in the source)
+MAX_SPLIT = 1024   # most partials its merge kernel takes (kMaxSplit)
+MMA_UNIT = 16      # tokens per split unit of the mma path (kUnit)
+MMA_TILE = 64      # tokens per ring tile of the mma path (kMmaTile)
+MMA_MAX_SPLIT = 128  # most splits per (b, KV head) on the mma path
+# blocks the split plan gives an SM (the kernel fits two): one 64-slot
+# tile per block at qwen2.5-7b's shape (33 splits) beat 11-44 splits on
+# the H100 (scripts/decode_attention_probe.py)
+MMA_BLOCKS_PER_SM = 1
+MAX_PAIRS = 4096   # most (b, KV head) pairs: the tickets (kMaxPairs)
 G_MAX = 16         # most query heads per KV head (kGMax)
 HEAD_DIMS = (32, 64, 128)
 
 launches = 0
+_tickets = {}      # device index -> int32 (MAX_PAIRS,), all 0 between calls
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.decode_attention_launch.argtypes = [
-        p, p, p, p, ctypes.c_longlong, p, p, p, p,
-        i, i, i, i, i, i, i, ctypes.c_float, i, p]
+        p, p, p, p, ll, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
     lib.decode_attention_launch.restype = i
+    lib.decode_attention_mma_launch.argtypes = [
+        p, p, p, p, ll, p, p, p, p, i, i, i, i, i, i, p]
+    lib.decode_attention_mma_launch.restype = i
+    lib.decode_attention_mma_blocks_per_sm.argtypes = [i]
+    lib.decode_attention_mma_blocks_per_sm.restype = i
     return lib
 
 
+def path_for(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The kernel path a call with this q and cache takes: "mma" for bf16
+    (tensor cores, one launch), "cuda_core" for f32 (partial + merge)."""
+    return "mma" if q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16 \
+        else "cuda_core"
+
+
 def split_plan(S: int):
-    """(n_split, chunk): one TILE of slots per block, so that every
-    block's K/V loads are in flight at once, unless that would exceed
-    MAX_SPLIT partials; chunk is a multiple of TILE."""
+    """The CUDA-core path's (n_split, chunk): one TILE of slots per
+    block, so that every block's K/V loads are in flight at once, unless
+    that would exceed MAX_SPLIT partials; chunk is a multiple of TILE."""
     chunk = TILE * math.ceil(math.ceil(S / TILE) / MAX_SPLIT)
     return math.ceil(S / chunk), chunk
+
+
+def mma_split_plan(B: int, Hkv: int, S: int, n_sm: int) -> int:
+    """Splits per (b, KV head) on the mma path: as many as give each of
+    n_sm SMs MMA_BLOCKS_PER_SM blocks, so every block is resident at
+    once; at most MMA_MAX_SPLIT and one per 16-token unit of S.  From
+    the shapes alone: the mask stays on the card, so the call captures."""
+    waves = MMA_BLOCKS_PER_SM * n_sm // (B * Hkv)
+    return max(1, min(waves, MMA_MAX_SPLIT, math.ceil(S / MMA_UNIT)))
+
+
+def split_range(S: int, split: int, n_split: int):
+    """Slots [s0, s1) of S that split ``split`` of ``n_split`` takes on
+    the mma path, as the kernel cuts them (``split_range`` in the
+    source): whole 16-token units, the runs differing by at most one
+    unit, clipped to S."""
+    units = -(-S // MMA_UNIT)
+    s0 = units * split // n_split * MMA_UNIT
+    s1 = min(units * (split + 1) // n_split * MMA_UNIT, S)
+    return s0, s1
 
 
 def _check(q, k, v, mask):
@@ -75,7 +119,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """q (B, Hq, hd); k/v (B, S, Hkv, hd); mask (S,) shared or (B, S) per
     sequence, nonzero = valid slot.  Returns (B, Hq, hd) in q's dtype; a
-    row with no valid slot is zeros."""
+    row with no valid slot is zeros.  A masked slot's K/V row is never
+    read.  ``path_for`` names the kernel path."""
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, mask)
     if q.device.type != "cuda":
@@ -84,21 +129,41 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Hq, hd = q.shape
     _, S, Hkv, _ = k.shape
     G = Hq // Hkv
-    n_split, chunk = split_plan(S)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty((B, Hkv, n_split, G), **f32)
-    l_part = torch.empty((B, Hkv, n_split, G), **f32)
-    acc_part = torch.empty((B, Hkv, n_split, G, hd), **f32)
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    bstride = S if mask.dim() == 2 else 0
     lib = _lib()
-    with torch.cuda.device(q.device):
-        rc = lib.decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            S if mask.dim() == 2 else 0,
-            m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-            out.data_ptr(), B, S, Hkv, G, hd, n_split, chunk, hd ** -0.5,
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    if path_for(q, k) == "mma":
+        if B * Hkv > MAX_PAIRS:
+            raise ValueError(f"the mma path takes B * Hkv <= {MAX_PAIRS}")
+        n_split = mma_split_plan(B, Hkv, S, _build.sm_count(q.device.index))
+        acc = ml = tickets = None
+        if n_split > 1:
+            # one scratch tensor: the (m, l) partials in f32, then from a
+            # 16-byte boundary the acc partials in bf16
+            ml_bytes = -(-B * Hkv * n_split * 2 * G * 4 // 16) * 16
+            part = torch.empty(ml_bytes + B * Hkv * n_split * G * hd * 2,
+                               dtype=torch.uint8, device=q.device)
+            ml, acc = part.data_ptr(), part.data_ptr() + ml_bytes
+            tickets = _build.ticket_buffer(_tickets, q.device, MAX_PAIRS,
+                                            "decode_attention").data_ptr()
+        with torch.cuda.device(q.device):
+            rc = lib.decode_attention_mma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                bstride, acc, ml, tickets, out.data_ptr(), B, S, Hkv, G, hd,
+                n_split, stream)
+    else:
+        n_split, chunk = split_plan(S)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        m_part = torch.empty((B, Hkv, n_split, G), **f32)
+        l_part = torch.empty((B, Hkv, n_split, G), **f32)
+        acc_part = torch.empty((B, Hkv, n_split, G, hd), **f32)
+        with torch.cuda.device(q.device):
+            rc = lib.decode_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                bstride, m_part.data_ptr(), l_part.data_ptr(),
+                acc_part.data_ptr(), out.data_ptr(), B, S, Hkv, G, hd,
+                n_split, chunk, hd ** -0.5, stream)
     _build.check(rc, "decode_attention")
     global launches
     launches += 1

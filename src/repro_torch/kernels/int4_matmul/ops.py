@@ -90,21 +90,6 @@ def _check(x, packed, scales, group):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _ticket_buffer(device: torch.device) -> torch.Tensor:
-    """The device's GEMV tickets: allocated zeroed at the first call, which
-    must not be under CUDA-graph capture, and kept; every launch leaves
-    them at 0.  Calls on one device share them, so those calls run in one
-    stream order (as the models' steps and their graphs do)."""
-    buf = _tickets.get(device.index)
-    if buf is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("int4_matmul: call the GEMV once before CUDA-graph "
-                               "capture (its first call allocates the tickets)")
-        buf = _tickets[device.index] = torch.zeros(
-            GEMV_TICKETS, dtype=torch.int32, device=device)
-    return buf
-
-
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                 *, group: int = 128) -> torch.Tensor:
     """x (M, K) @ int4-packed (K//2, N) with per-group scales -> (M, N) in
@@ -124,7 +109,8 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         if splits > 1:
             part = torch.empty((splits, M, N), dtype=torch.float32,
                                device=x.device)
-            tickets = _ticket_buffer(x.device)
+            tickets = _build.ticket_buffer(_tickets, x.device, GEMV_TICKETS,
+                                           "int4_matmul")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):

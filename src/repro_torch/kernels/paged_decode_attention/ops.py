@@ -95,23 +95,6 @@ def split_range(length: int, split: int, n_split: int):
     return s0, s1
 
 
-def _ticket_buffer(device: torch.device) -> torch.Tensor:
-    """The device's tickets of the mma path: allocated zeroed at the
-    first call, which must not be under CUDA-graph capture, and kept;
-    every launch leaves them at 0.  Calls on one device share them, so
-    those calls run in one stream order (as the serving step and its
-    graph do)."""
-    buf = _tickets.get(device.index)
-    if buf is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("paged_decode_attention: call it once before "
-                               "CUDA-graph capture (its first call allocates "
-                               "the tickets)")
-        buf = _tickets[device.index] = torch.zeros(
-            MAX_PAIRS, dtype=torch.int32, device=device)
-    return buf
-
-
 def _check(q, k_pool, v_pool, block_table, lengths, ks, vs):
     if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"want q (B,Hq,hd), pools (n_pages,page,Hkv,hd); got "
@@ -207,7 +190,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         if n_split > 1:
             part_acc = torch.empty((B, Hkv, n_split, G, hd), **f32)
             part_ml = torch.empty((B, Hkv, n_split, 2, G), **f32)
-            tickets = _ticket_buffer(q.device)
+            tickets = _build.ticket_buffer(_tickets, q.device, MAX_PAIRS,
+                                           "paged_decode_attention")
         with torch.cuda.device(q.device):
             rc = lib.paged_decode_attention_mma_launch(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,

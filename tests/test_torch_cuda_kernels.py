@@ -59,6 +59,121 @@ def test_decode_attention(cuda, dtype, B, Hq, Hkv, hd, S):
     assert torch.all(out[0] == 0)
 
 
+def _mma_case(dev, B, G, Hkv, hd, S, seed):
+    """bf16 q, k, v and a (B, S) mask: sparse random slots, a run of 600
+    masked slots (whole tiles and splits with no valid slot), the last
+    row fully masked when B > 1, and the first slot valid in row 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, G * Hkv, hd), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, S, Hkv, hd), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, S, Hkv, hd), generator=g, device=dev).bfloat16()
+    mask = torch.rand((B, S), generator=g, device=dev) < 0.5
+    mask[:, S // 4:S // 4 + 600] = False
+    mask[0, 0] = True
+    if B > 1:
+        mask[-1] = False
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("G", [1, 4, 7, 8, 16])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_decode_attention_mma(cuda, hd, G):
+    """Kernel 1's mma path (bf16): one launch per call, within bf16's
+    tolerance of the plain version, two calls bit-equal, and NaN written
+    into every masked slot's K/V row leaves the output bit-equal (a
+    masked row is never read); a fully masked row gives zeros."""
+    B, Hkv, S = 2, max(1, 8 // G), 2081
+    q, k, v, mask = _mma_case(cuda, B, G, Hkv, hd, S, seed=hd * 17 + G)
+    assert da_ops.path_for(q, k) == "mma"
+    before = da_ops.launches
+    out = da_ops.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert da_ops.launches == before + 1
+    _close(out, decode_attention_ref(q, k, v, mask), torch.bfloat16)
+    assert torch.all(out[-1] == 0)
+    assert torch.equal(da_ops.decode_attention(q, k, v, mask), out)
+    dead = ~mask
+    k[dead], v[dead] = float("nan"), float("nan")
+    poisoned = da_ops.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, out)
+
+
+def test_decode_attention_mma_one_split_and_long_range(cuda):
+    """B * Hkv >= the SM count gives one split per (b, KV head): each block
+    writes its output directly (no partials, no ticket) and walks all S =
+    9000 slots as three 4096-slot windows of mask bits; NaN in the masked
+    rows still leaves the output bit-equal."""
+    B, G, Hkv, hd, S = 3, 2, 48, 32, 9000
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert da_ops.mma_split_plan(B, Hkv, S, sms) == 1
+    q, k, v, mask = _mma_case(cuda, B, G, Hkv, hd, S, seed=1)
+    mask[0, 4000:8500] = False           # the second window of row 0 has no valid slot
+    out = da_ops.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    _close(out, decode_attention_ref(q, k, v, mask), torch.bfloat16)
+    assert torch.all(out[-1] == 0)
+    dead = ~mask
+    k[dead], v[dead] = float("nan"), float("nan")
+    assert torch.equal(da_ops.decode_attention(q, k, v, mask), out)
+
+
+@pytest.mark.parametrize("hd,G,Hkv,S", [(128, 7, 4, 2081), (64, 1, 32, 2081)])
+def test_decode_attention_mma_is_one_launch(cuda, hd, G, Hkv, S):
+    """At the two main-path shapes (qwen2.5-7b, zamba2-1.2b's shared
+    block) with the prefix mask of a decode step, the profiler sees one
+    kernel per call, `decode_attention_mma`, and no merge kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, _ = _mma_case(cuda, 1, G, Hkv, hd, S, seed=S)
+    mask = torch.arange(S, device=cuda) <= 2048
+    da_ops.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            da_ops.decode_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")}
+    assert len(kernels) == 1
+    (name, count), = kernels.items()
+    assert "decode_attention_mma" in name and count == 3
+    _close(da_ops.decode_attention(q, k, v, mask), decode_attention_ref(q, k, v, mask),
+           torch.bfloat16)
+
+
+def test_decode_attention_mma_graph_replay(cuda):
+    """Kernel 1's first mma call allocates its tickets, so under CUDA-graph
+    capture it raises; after an eager call a captured call replays with
+    q and the mask changed in place, each replay bit-equal to an eager
+    call, and the tickets are back at 0 after each."""
+    B, G, Hkv, hd, S = 1, 7, 4, 128, 2081
+    q, k, v, mask = _mma_case(cuda, B, G, Hkv, hd, S, seed=5)
+    saved = da_ops._tickets.pop(cuda.index if cuda.index is not None
+                                else torch.cuda.current_device(), None)
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="before CUDA-graph capture"):
+            with torch.cuda.graph(graph):
+                da_ops.decode_attention(q, k, v, mask)
+    finally:
+        if saved is not None:
+            da_ops._tickets[saved.device.index] = saved
+    da_ops.decode_attention(q, k, v, mask)   # allocates the tickets
+    tickets = da_ops._tickets[q.device.index]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da_ops.decode_attention(q, k, v, mask)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for pos in (0, 700, 2080):
+        q.copy_(torch.randn(q.shape, generator=g, device=cuda).bfloat16())
+        mask.copy_(torch.arange(S, device=cuda)[None] <= pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(tickets.abs().sum()) == 0
+        assert torch.equal(out, da_ops.decode_attention(q, k, v, mask))
+        _close(out, decode_attention_ref(q, k, v, mask), torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N,group", [
     (1, 128, 128, 128), (4, 256, 384, 128), (16, 64, 96, 64),
