@@ -48,14 +48,20 @@ Phases, in order; each raises on failure and nothing catches:
     2560, 3584, 4096, 5120} x R in {1, 4, 512, 2048} (every width and row
     count of the main paths), with and without w, and a strided
     slice read in place; bf16 output within one bf16 spacing of the plain
-    version's; times of the kernel, the plain version and
-    ``F.rms_norm`` (timed only) at the main paths' rows.
+    version's; ptxas' registers and spills of ``rmsnorm_kernel``; times
+    of the kernel (with its plan, ``ops.norm_plan``), the plain version
+    and ``F.rms_norm`` (timed only) at the main paths' rows; at D=2560
+    also the profiler's device time per call and the time per call back
+    to back with L2 cold (129 decode rows, or 8 prompts of 2048 rows).
  6. SSD-update kernel against its plain version with f32 and bf16
     x/B/C at the mamba2-2.7b (1,80,64,128) and zamba2-1.2b (1,64,64,64)
     decode shapes, grouped (3,8,16,32, G=2) and with dt*A near -1e4
     (exp gives 0); the in-place call (out=h) must be bit-equal to the
-    out-of-place one; times of the kernel and the plain version (no
-    single PyTorch call computes it).
+    out-of-place one; ptxas' registers and spills of
+    ``ssd_update_kernel``; times of the kernel (with its plan,
+    ``ops.ssd_plan``) and the plain version (no single PyTorch call
+    computes it), the profiler's device time per call and the time per
+    call back to back over 64 (mamba2) or 96 (zamba2) distinct states.
  7. the decode-attention kernel inside the real path: a qwen2.5-7b-width
     model with 2 layers in f32; greedy tokens of ``decode_backend="cuda"``
     and ``"sdpa"`` must be identical over 16 tokens.
@@ -109,7 +115,8 @@ Phases, in order; each raises on failure and nothing catches:
     decode attentions and 91 RMSNorms per decode step; the profiled step
     must show 7 ``decode_attention_mma`` kernels and no merge.
 15. the kernels line: one JSON object with every ported kernel's
-    numbers (all five: no TPU kernel is left to port); ``launches`` sums
+    numbers (all five: no TPU kernel is left to port; ``device_us`` and
+    ``b2b_us`` for kernels 4 and 5, null for the others); ``launches`` sums
     the main paths that run the kernel and ``launches_by_path`` names
     each path's count; the int4 row adds the M=2048 sums (``prefill_*``)
     and the prefill's launches and walls.
@@ -176,6 +183,43 @@ class Timer:
             events.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in events)
+
+    def device_us(self, fn, iters=20) -> float:
+        """torch.profiler device time per call (us) of the kernels ``fn``
+        launches, L2 flushed before each call (the flush left out), over
+        the calls the profiler recorded: the kernels alone, without the
+        launch and the timer's own cost."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages() if e.self_device_time_total > 0
+                and "fill" not in e.key.lower() and "memset" not in e.key.lower()]
+        calls = max((e.count for e in seen), default=0)   # the calls it recorded
+        return sum(e.self_device_time_total for e in seen) / calls if calls else float("nan")
+
+    def back_to_back_us(self, calls, reps=7) -> float:
+        """us per call of ``calls`` (on distinct data) enqueued behind one
+        spin between one event pair, L2 flushed first: the card runs them
+        back to back, each finding its data cold, as a step meets them."""
+        for c in calls:
+            c()
+        events = []
+        for _ in range(reps):
+            self.flush.zero_()
+            torch.cuda._sleep(20_000_000)
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            for c in calls:
+                c()
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in events) / len(calls) * 1e3
 
 
 def bound_ms(nbytes: float, flops: float, dtype):
@@ -676,7 +720,9 @@ def check_rmsnorm(dev, timer):
         raise AssertionError("rmsnorm of a strided slice differs")
     log("  strided slice x[:, -1:] of (3, 7, 3584) read in place: ok")
 
-    rows, row = [], None
+    log_kernel_build("rmsnorm", "rmsnorm_kernel")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    row = None
     for R, D in ((1, 2560), (1, 5120), (1, 3584), (2048, 2560), (2048, 5120),
                  (2048, 3584)):
         x, w = norm_case(dev, torch.bfloat16, R, D, 7 * R + D)
@@ -687,18 +733,31 @@ def check_rmsnorm(dev, timer):
         lib_ms = timer(lambda: F.rms_norm(x, (D,), w, eps=1e-6))
         nbytes = 2 * R * D * 2 + D * 2
         b_ms, b_by = bound_ms(nbytes, 4 * R * D, torch.float32)
-        log(f"  times, bf16 R={R} D={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"F.rms_norm {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}: "
-            f"{nbytes} bytes)")
-        rows.append((R, D, ms))
+        log(f"  times, bf16 R={R} D={D} ({ops.norm_plan(R, D, 2, n_sm)}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}: {nbytes} bytes)")
+        if D == 2560:
+            dev_us = timer.device_us(lambda: ops.rmsnorm(x, w))
+            if R == 1:   # a mamba2 step's 129 decode rows
+                many = norm_case(dev, torch.bfloat16, 129, D, 5)[0]
+                inputs = [many[i:i + 1] for i in range(129)]
+            else:        # 8 prompts, 84 MB: past L2
+                inputs = [norm_case(dev, torch.bfloat16, R, D, i)[0] for i in range(8)]
+            b2b_us = timer.back_to_back_us([lambda xi=xi: ops.rmsnorm(xi, w)
+                                            for xi in inputs])
+            log(f"  bf16 R={R} D={D}: device {dev_us:.2f} us a call (profiler), "
+                f"{b2b_us:.2f} us a call back to back over {len(inputs)} distinct "
+                f"inputs, L2 cold")
+            del inputs
         if (R, D) == (2048, 2560):
             row = dict(name="rmsnorm", route="cuda",
                        source="src/repro_torch/csrc/rmsnorm.cu",
                        replaces="src/repro/kernels/rmsnorm/rmsnorm.py:24",
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib_ms,
+                       bound_by=b_by, library_ms=lib_ms, device_us=dev_us,
+                       b2b_us=b2b_us,
                        shape="bf16 R=2048 D=2560 with w (mamba2-2.7b prefill "
-                             "norm1)")
+                             "norm1); b2b_us over 8 distinct inputs")
     return row
 
 
@@ -725,6 +784,8 @@ def check_ssd_update(dev, timer):
     from repro_torch.kernels.ssd_update import ops, ref
     log("== phase 6: SSD update, kernel vs plain (h' and y f32, tol 1e-4 x "
         "max(1,|plain|))")
+    log_kernel_build("ssd_update", "ssd_update_kernel")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = [("mamba2-2.7b decode", 1, 80, 64, 128, 1, 1.0),
              ("zamba2-1.2b decode", 1, 64, 64, 64, 1, 1.0),
              ("grouped, G=2", 3, 8, 16, 32, 2, 1.0),
@@ -758,20 +819,30 @@ def check_ssd_update(dev, timer):
         err = max(rel_err(h_new, want_h)[0], rel_err(y, want_y)[0])
         ms = timer(lambda: ops.ssd_update(h, x, dt, A, Bm, Cm, out=h))
         plain_ms = timer(lambda: ref.ssd_update_ref(h, x, dt, A, Bm, Cm))
+        dev_us = timer.device_us(lambda: ops.ssd_update(h, x, dt, A, Bm, Cm, out=h))
+        # a step's layers each update their own state: 64 (mamba2, 168 MB)
+        # or 96 (zamba2, 101 MB) distinct states, past L2
+        states = [torch.randn_like(h) for _ in range(64 if N == 128 else 96)]
+        b2b_us = timer.back_to_back_us([
+            lambda s=s: ops.ssd_update(s, x, dt, A, Bm, Cm, out=s) for s in states])
+        del states
         nbytes = ssd_bytes(B, H, P, N, G)
         b_ms, b_by = bound_ms(nbytes, 5 * B * H * P * N, torch.float32)
         log(f"  times at the {label} decode shape (f32 x/B/C as the model passes "
-            f"them, in place): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library: no single PyTorch call, bound {b_ms:.6f} ms ({b_by}: "
-            f"{nbytes} bytes)")
+            f"them, in place; {ops.ssd_plan(B, H, P, N, n_sm)}): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, library: no single PyTorch call, bound "
+            f"{b_ms:.6f} ms ({b_by}: {nbytes} bytes); device {dev_us:.2f} us a call "
+            f"(profiler), {b2b_us:.2f} us a call back to back, L2 cold")
         if row is None:
             row = dict(name="ssd_update", route="cuda",
                        source="src/repro_torch/csrc/ssd_update.cu",
                        replaces="src/repro/kernels/ssd_update/ssd_update.py:37",
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None,
+                       bound_by=b_by, library_ms=None, device_us=dev_us,
+                       b2b_us=b2b_us,
                        shape="f32 B=1 H=80 P=64 N=128 G=1, in place "
-                             "(mamba2-2.7b decode)")
+                             "(mamba2-2.7b decode); b2b_us over 64 distinct "
+                             "states")
     return row
 
 
@@ -1411,7 +1482,7 @@ PENDING = []    # TPU kernels still to port: none
 
 KEYS = ("name", "route", "source", "replaces", "launches", "launches_by_path",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "shape")
+        "device_us", "b2b_us", "shape")
 
 
 def kernels_line(rows) -> str:
@@ -1437,6 +1508,9 @@ def main(argv=None) -> int:
     rows = [check_decode_attention(dev, timer), check_int4_matmul(dev, timer)]
     rows += check_paged_decode_attention(dev, timer)
     rows += [check_rmsnorm(dev, timer), check_ssd_update(dev, timer)]
+    for row in rows[:-2]:     # device_us and b2b_us: measured for kernels 4 and 5
+        row.setdefault("device_us", None)
+        row.setdefault("b2b_us", None)
     del timer
     torch.cuda.empty_cache()
     if args.only == "kernels":

@@ -9,13 +9,22 @@
 // What bounds it: bytes.  Every element is read once and written once
 // (a prefill of 2048 x 3584 bf16 moves 29.4 MB, 8.8 us at 3.35 TB/s); a
 // decode row (R = 1, D = 2560 bf16 moves about 15 kB) is bound by the
-// launch.  The TPU kernel keeps a (256, D) row block in VMEM; here one
-// block owns one row, each thread reading 16 bytes at a time with
-// neighbouring threads on neighbouring addresses, so a decode row is in
-// flight after one load per thread.  The block reduces the sum of squares
-// with warp shuffles and one shared-memory step, then makes a second pass
-// over the row, which a row of at most 20 kB finds in L1.  Rows are
-// addressed through a row stride, so a strided slice (x[:, -1:] of a
+// launch and one memory round trip.  The TPU kernel keeps a (256, D) row
+// block in VMEM.  Here a group of `warps_per_row` warps owns one row at a
+// time and holds it in registers from its one read: each lane C 16-byte
+// chunks, neighbouring lanes on neighbouring chunks, so y needs no second
+// pass over x.  A group of one warp reduces the sum of squares by
+// shuffles alone; a larger group adds its warps' sums in one
+// shared-memory step at a barrier of its own (two slots by row parity, so
+// one barrier a row): every warp reads them all at once and adds them by
+// shuffles, in the same order.  Each lane loads its chunks of w once.  A
+// block holds `rows_per_block` groups and walks rows `grid *
+// rows_per_block` apart; a group issues its next row's loads before it
+// reduces the current one.  The plan (warps per row, rows per block, C, grid) is the
+// wrapper's (`norm_plan` in kernels/rmsnorm/ops.py) and is only checked
+// here: decode rows (fewer rows than SMs) spread over enough warps that
+// every chunk has a lane, a prompt's rows over a few warps each.  Rows
+// are addressed through a row stride, so a strided slice (x[:, -1:] of a
 // batch) is read in place.  Widths, row strides and pointers must be
 // 16-byte aligned: every configured width is a multiple of 8.
 #include <cuda_bf16.h>
@@ -23,6 +32,14 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr int kMaxChunks = 8;   // 16-byte chunks of a row a lane holds
+
+// Threads a block may have at C chunks a lane: each lane holds 3 x C
+// 16-byte registers (this row, the next, w).  norm_plan keeps to it.
+__host__ __device__ constexpr int max_threads(int C) {
+  return C <= 2 ? 1024 : (C <= 4 ? 512 : 256);
+}
 
 template <typename T>
 struct Vec;   // elements in one 16-byte load
@@ -40,76 +57,136 @@ __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);   // round to nearest even, as Tensor.to does
 }
 
-template <typename T, int V>
-__device__ __forceinline__ void load(const T* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < V; ++i) out[i] = to_f(e[i]);
+__device__ __forceinline__ uint4 ld_row(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void st_row(void* p, uint4 v) {
+  *reinterpret_cast<uint4*>(p) = v;
 }
 
-template <typename T, int V>
-__device__ __forceinline__ void store(T* p, const float* in) {
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& raw, float* f) {
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::n; ++i) f[i] = to_f(e[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 pack(const float* f) {
   uint4 raw;
   T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
-  for (int i = 0; i < V; ++i) from_f(e + i, in[i]);
-  *reinterpret_cast<uint4*>(p) = raw;
+  for (int i = 0; i < Vec<T>::n; ++i) from_f(e + i, f[i]);
+  return raw;
 }
 
-// One block: row blockIdx.x.  blockDim.x is a multiple of 32, at most 1024.
-template <typename T, int V>
-__global__ void rmsnorm_kernel(const T* __restrict__ x, long long x_stride,
-                               const T* __restrict__ w, T* __restrict__ y,
-                               int D, float eps) {
-  __shared__ float warp_sums[32];
-  __shared__ float inv_rms;
-  const T* xr = x + (size_t)blockIdx.x * x_stride;
-  T* yr = y + (size_t)blockIdx.x * D;
-  const int nvec = D / V;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+// Barrier `id` of the `threads` threads of one row group.
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
 
-  float ss = 0.f;
-  for (int i = tid; i < nvec; i += blockDim.x) {
-    float f[V];
-    load<T, V>(xr + (size_t)i * V, f);
+// blockDim.x = 32 * warps_per_row * rows_per_block; chunks C cover the
+// row: C * 32 * warps_per_row >= D / V.
+template <typename T, int C>
+__global__ void __launch_bounds__(max_threads(C)) rmsnorm_kernel(
+    const T* __restrict__ x, long long x_stride, const T* __restrict__ w,
+    T* __restrict__ y, int R, int D, int warps_per_row, int rows_per_block,
+    float eps) {
+  constexpr int V = Vec<T>::n;
+  __shared__ float part[2][32];   // the warps' sums of squares, by row parity
+  const int nvec = D / V;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = warp / warps_per_row;
+  const int span = warps_per_row * 32;                 // lanes of a row
+  const int lo = (warp % warps_per_row) * 32 + lane;   // the lane's first chunk
+  const int step = gridDim.x * rows_per_block;
+  int r = blockIdx.x * rows_per_block + group;
+
+  uint4 xv[C], wv[C];
+  if (r < R) {
+    const T* xr = x + (size_t)r * x_stride;
 #pragma unroll
-    for (int j = 0; j < V; ++j) ss += f[j] * f[j];
+    for (int j = 0; j < C; ++j)
+      if (lo + j * span < nvec) xv[j] = ld_row(xr + (size_t)(lo + j * span) * V);
   }
+  if (w != nullptr) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if (lane == 0) warp_sums[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float s = lane < (int)(blockDim.x / 32) ? warp_sums[lane] : 0.f;
+    for (int j = 0; j < C; ++j)
+      if (lo + j * span < nvec) wv[j] = ld_row(w + (size_t)(lo + j * span) * V);
+  }
+  int parity = 0;
+  for (; r < R; r += step) {
+    const T* xr = x + (size_t)r * x_stride;
+    T* yr = y + (size_t)r * D;
+    uint4 xn[C];   // the next row, in flight while this one is reduced
+    if (r + step < R) {
+      const T* xnr = x + (size_t)(r + step) * x_stride;
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        if (lo + j * span < nvec) xn[j] = ld_row(xnr + (size_t)(lo + j * span) * V);
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (lo + j * span < nvec) {
+        float f[V];
+        unpack<T>(xv[j], f);
+#pragma unroll
+        for (int k = 0; k < V; ++k) ss += f[k] * f[k];
+      }
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) inv_rms = 1.f / sqrtf(s / (float)D + eps);
-  }
-  __syncthreads();
-  const float r = inv_rms;
-
-  for (int i = tid; i < nvec; i += blockDim.x) {
-    float f[V], o[V];
-    load<T, V>(xr + (size_t)i * V, f);
-    if (w != nullptr) {
-      float fw[V];
-      load<T, V>(w + (size_t)i * V, fw);
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    if (warps_per_row > 1) {   // one shared-memory step between the row's warps
+      if (lane == 0) part[parity][warp] = ss;
+      group_sync(1 + group, span);
+      ss = lane < warps_per_row ? part[parity][group * warps_per_row + lane] : 0.f;
 #pragma unroll
-      for (int j = 0; j < V; ++j) o[j] = (f[j] * r) * fw[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) o[j] = f[j] * r;
+      for (int off = 16; off > 0; off >>= 1)
+        ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      parity ^= 1;
     }
-    store<T, V>(yr + (size_t)i * V, o);
-  }
+    // the row's sum of squares is in
+    const float rr = 1.f / sqrtf(ss / (float)D + eps);
+    // scale the row held in registers
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int i = lo + j * span;
+      if (i < nvec) {
+        float f[V], o[V];
+        unpack<T>(xv[j], f);
+        if (w != nullptr) {
+          float fw[V];
+          unpack<T>(wv[j], fw);
+#pragma unroll
+          for (int k = 0; k < V; ++k) o[k] = (f[k] * rr) * fw[k];
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k) o[k] = f[k] * rr;
+        }
+        st_row(yr + (size_t)i * V, pack<T>(o));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) xv[j] = xn[j];
+  }   // rows
+}
+
+template <typename T, int C>
+int launch_c(const void* x, long long x_stride, const void* w, void* y, int R,
+             int D, float eps, int warps_per_row, int rows_per_block,
+             int grid, cudaStream_t st) {
+  rmsnorm_kernel<T, C><<<grid, 32 * warps_per_row * rows_per_block, 0, st>>>(
+      static_cast<const T*>(x), x_stride, static_cast<const T*>(w),
+      static_cast<T*>(y), R, D, warps_per_row, rows_per_block, eps);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, long long x_stride, const void* w, void* y, int R,
-           int D, float eps, cudaStream_t st) {
+           int D, float eps, int warps_per_row, int rows_per_block,
+           int chunks, int grid, cudaStream_t st) {
   constexpr int V = Vec<T>::n;
   const auto misaligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 != 0;
@@ -117,27 +194,48 @@ int launch(const void* x, long long x_stride, const void* w, void* y, int R,
   if (D % V || x_stride % V || misaligned(x) || misaligned(y) ||
       (w != nullptr && misaligned(w)))
     return (int)cudaErrorInvalidValue;
-  const int nvec = D / V;
-  int threads = (nvec + 31) / 32 * 32;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  rmsnorm_kernel<T, V><<<R, threads, 0, st>>>(
-      static_cast<const T*>(x), x_stride, static_cast<const T*>(w),
-      static_cast<T*>(y), D, eps);
-  return (int)cudaGetLastError();
+  const long long threads = 32LL * warps_per_row * rows_per_block;
+  if (chunks < 1 || chunks > kMaxChunks || warps_per_row < 1 ||
+      rows_per_block < 1 || grid < 1 || threads > max_threads(chunks) ||
+      (warps_per_row > 1 && rows_per_block > 15) ||   // barriers 1..15
+      32LL * warps_per_row * chunks < D / V)
+    return (int)cudaErrorInvalidValue;
+#define NORM_LAUNCH(C)                                                   \
+  case C:                                                                \
+    return launch_c<T, C>(x, x_stride, w, y, R, D, eps, warps_per_row,   \
+                          rows_per_block, grid, st)
+  switch (chunks) {
+    NORM_LAUNCH(1);
+    NORM_LAUNCH(2);
+    NORM_LAUNCH(3);
+    NORM_LAUNCH(4);
+    NORM_LAUNCH(5);
+    NORM_LAUNCH(6);
+    NORM_LAUNCH(7);
+    NORM_LAUNCH(8);
+  }
+#undef NORM_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x: R rows of D elements, row r at x + r * x_stride (elements); y: R x D
 // contiguous; w: D elements or null.  D and x_stride must be multiples of
-// 16 / sizeof(T) and x, w, y 16-byte aligned.  Launches on `stream`;
-// returns the cudaError_t of the launch.
+// 16 / sizeof(T) and x, w, y 16-byte aligned.  The plan (norm_plan):
+// warps_per_row warps own a row, rows_per_block rows a block, each lane
+// `chunks` 16-byte chunks of its row, `grid` blocks.  Launches on
+// `stream`; returns the cudaError_t of the launch.
 extern "C" int rmsnorm_launch(const void* x, long long x_stride,
                               const void* w, void* y, int R, int D,
-                              float eps, int is_bf16, void* stream) {
+                              float eps, int is_bf16, int warps_per_row,
+                              int rows_per_block, int chunks, int grid,
+                              void* stream) {
   if (R < 1 || D < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, x_stride, w, y, R, D, eps, st);
-  return launch<float>(x, x_stride, w, y, R, D, eps, st);
+    return launch<__nv_bfloat16>(x, x_stride, w, y, R, D, eps, warps_per_row,
+                                 rows_per_block, chunks, grid, st);
+  return launch<float>(x, x_stride, w, y, R, D, eps, warps_per_row,
+                       rows_per_block, chunks, grid, st);
 }

@@ -5,13 +5,15 @@ takes the plain version in ``ref.py``.  ``launches`` counts kernel
 launches (one per call that reached the card; a call recorded into a
 CUDA graph counts once, at capture).  The kernel launches on the current
 stream and the wrapper allocates only the output, so a call can be
-captured into a CUDA graph.
+captured into a CUDA graph.  How the kernel spreads rows over warps,
+blocks and the grid is ``norm_plan``'s, from the shapes and the SM count.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -19,8 +21,77 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rmsnorm import ref
 
 DTYPES = (torch.bfloat16, torch.float32)
+MAX_CHUNKS = 8        # 16-byte chunks of a row one lane holds (kMaxChunks)
+PROMPT_CHUNKS = 5     # the most a lane holds on prompt rows
+PROMPT_THREADS = 256  # threads of a block of prompt rows
+BLOCKS_PER_SM = 2     # prompt blocks the grid puts on each SM
 
 launches = 0
+
+
+class NormPlan(NamedTuple):
+    warps_per_row: int    # warps that own one row
+    rows_per_block: int   # rows a block holds at once, one per warp group
+    chunks: int           # 16-byte chunks of its row each lane holds
+    grid: int             # blocks; block b's group g takes rows
+    #                       b * rows_per_block + g + k * grid * rows_per_block
+
+
+def max_threads(chunks: int) -> int:
+    """Threads a block may have at ``chunks`` chunks a lane (the kernel's
+    ``max_threads``: each lane holds three times that many registers)."""
+    return 1024 if chunks <= 2 else 512 if chunks <= 4 else 256
+
+
+@functools.lru_cache(maxsize=1024)
+def norm_plan(R: int, D: int, itemsize: int, n_sm: int,
+              warps_per_row: Optional[int] = None,
+              blocks_per_sm: int = BLOCKS_PER_SM) -> NormPlan:
+    """How the kernel covers R rows of D elements of ``itemsize`` bytes on
+    n_sm SMs.  Fewer rows than SMs (decode rows): one block a row, with
+    enough warps that every 16-byte chunk has a lane (one chunk a lane up
+    to 1024 chunks, two up to 2048: D 16384 bf16, 8192 f32).  Otherwise
+    (a prompt's rows): warps per row such that a lane holds at most
+    PROMPT_CHUNKS where the block allows it, blocks of at most PROMPT_THREADS
+    threads, at most ``blocks_per_sm`` blocks an SM; a block walks its
+    rows in a loop.  ``warps_per_row`` overrides the choice (the probe's
+    sweep); a plan the kernel cannot run raises ValueError."""
+    nvec = D * itemsize // 16
+    decode = R < n_sm
+
+    def fits(w):
+        c = math.ceil(nvec / (32 * w))
+        return c <= MAX_CHUNKS and 32 * w <= max_threads(c)
+    if warps_per_row is None:
+        # the widest spread of a row the block allows
+        wide = next((w for w in (math.ceil(nvec / (32 * c)) for c in range(1, MAX_CHUNKS + 1))
+                     if fits(w)), 32)
+        narrow = math.ceil(nvec / (32 * PROMPT_CHUNKS))
+        warps_per_row = narrow if not decode and fits(narrow) else wide
+    chunks = math.ceil(nvec / (32 * warps_per_row))
+    if not fits(warps_per_row):
+        raise ValueError(f"rows of {nvec} 16-byte chunks do not fit {warps_per_row} "
+                         f"warps of at most {MAX_CHUNKS} chunks a lane")
+    if decode:
+        return NormPlan(warps_per_row, 1, chunks, R)
+    per_block = max(1, PROMPT_THREADS // (32 * warps_per_row))
+    if warps_per_row > 1:
+        per_block = min(per_block, 15)     # one named barrier per group
+    return NormPlan(warps_per_row, per_block, chunks,
+                    min(math.ceil(R / per_block), n_sm * blocks_per_sm))
+
+
+def rows_of(plan: NormPlan, R: int, block: int, group: int) -> range:
+    """The rows group ``group`` of block ``block`` normalises, as the
+    kernel walks them."""
+    step = plan.grid * plan.rows_per_block
+    return range(block * plan.rows_per_block + group, R, step)
+
+
+def chunks_of(plan: NormPlan, nvec: int, lane: int) -> list:
+    """The 16-byte chunks of a row that lane ``lane`` of its group holds."""
+    span = 32 * plan.warps_per_row
+    return [lane + j * span for j in range(plan.chunks) if lane + j * span < nvec]
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,7 +99,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rmsnorm")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rmsnorm_launch.argtypes = [p, ctypes.c_longlong, p, p, i, i,
-                                   ctypes.c_float, i, p]
+                                   ctypes.c_float, i, i, i, i, i, p]
     lib.rmsnorm_launch.restype = i
     return lib
 
@@ -51,7 +122,8 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
     """x (..., D) bf16/f32, w (D,) in x's dtype or None.  Returns
     x * rsqrt(mean(x^2) + eps) * w in x's shape and dtype, computed in
     f32.  A strided x whose rows share one stride is read in place.  On
-    the card D and the row stride must be multiples of 16 bytes."""
+    the card D and the row stride must be multiples of 16 bytes and a row
+    at most 32 KB (D 16384 bf16, 8192 f32)."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
     if x.device.type != "cuda":
@@ -72,11 +144,12 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
         raise ValueError(f"kernel takes 16-byte aligned rows: D and the row "
                          f"stride multiples of {per16}, x and w 16-byte "
                          f"aligned; got D={D}, stride {x2.stride(0)}")
+    plan = norm_plan(R, D, x.element_size(), _build.sm_count(x.device.index))
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.rmsnorm_launch(
             x2.data_ptr(), x2.stride(0), None if w is None else w.data_ptr(),
-            out.data_ptr(), R, D, eps, int(x.dtype == torch.bfloat16),
+            out.data_ptr(), R, D, eps, int(x.dtype == torch.bfloat16), *plan,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "rmsnorm")
     global launches

@@ -5,13 +5,16 @@ signature.  A CUDA tensor launches the kernel, or the wrapper raises; a
 CPU tensor takes the plain version in ``ref.py``.  ``launches`` counts
 kernel launches (one per call that reached the card).  ``out=`` names
 the tensor that receives h' and may be ``h`` itself: the decode step
-updates its cache's state in place.
+updates its cache's state in place.  How the kernel spreads the rows of
+the state over threads, blocks and the grid is ``ssd_plan``'s, from the
+shapes and the SM count.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -19,10 +22,58 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_update import ref
 
 MIN_N = 16         # four lanes of 16-byte chunks per row at least
-MAX_N = 256        # state width the kernel stages in shared memory (kMaxN)
+MAX_N = 256        # 32 lanes of two 16-byte chunks a row (kMaxN)
 DTYPES = (torch.bfloat16, torch.float32)
+WARPS = 8          # warps of a block
+MIN_BLOCKS_PER_SM = 2   # the rows a thread takes shrink until the grid has these
 
 launches = 0
+
+
+class SsdPlan(NamedTuple):
+    lanes: int             # lanes of one row (4, 8, 16 or 32)
+    chunks: int            # 16-byte chunks of its row each lane holds (1 or 2)
+    rows_per_thread: int   # rows a thread updates at the same columns (1, 2, 4)
+    warps: int             # warps of a block
+    grid: int              # blocks along P; the launch grid is (grid, H, B)
+
+
+@functools.lru_cache(maxsize=1024)
+def ssd_plan(B: int, H: int, P: int, N: int, n_sm: int,
+             rows_per_thread: Optional[int] = None,
+             warps: int = WARPS) -> SsdPlan:
+    """How the kernel covers the (B, H, P, N) state on n_sm SMs: a row is
+    served by min(32, N / 4) lanes (a power of two), each holding one or two
+    16-byte chunks of it; a thread takes 4, 2 or 1 rows, the most that
+    still gives the grid MIN_BLOCKS_PER_SM blocks an SM.
+    ``rows_per_thread`` and ``warps`` override the choice (the probe's
+    sweep)."""
+    nc = N // 4
+    lanes = next(n for n in (32, 16, 8, 4) if nc >= n or n == 4)
+    chunks = math.ceil(nc / lanes)
+    per_slot = warps * (32 // lanes)          # rows a block covers per row a thread
+
+    def grid(rpt):
+        return math.ceil(P / (per_slot * rpt))
+    if rows_per_thread is None:
+        rows_per_thread = next((r for r in (4, 2) if B * H * grid(r) >= MIN_BLOCKS_PER_SM * n_sm), 1)
+    return SsdPlan(lanes, chunks, rows_per_thread, warps, grid(rows_per_thread))
+
+
+def ssd_rows(plan: SsdPlan, block: int, thread: int) -> list:
+    """The rows of P (unclipped) that thread ``thread`` of block ``block``
+    (along P) updates, as the kernel indexes them."""
+    per_slot = plan.warps * (32 // plan.lanes)
+    p0 = (block * plan.rows_per_thread * per_slot + (thread // 32) * (32 // plan.lanes)
+          + (thread % 32) // plan.lanes)
+    return [p0 + k * per_slot for k in range(plan.rows_per_thread)]
+
+
+def ssd_columns(plan: SsdPlan, N: int, thread: int) -> list:
+    """The first columns of the 16-byte chunks of its rows that thread
+    ``thread`` holds."""
+    sub = thread % 32 % plan.lanes
+    return [c for c in ((sub + j * plan.lanes) * 4 for j in range(plan.chunks)) if c < N]
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,7 +81,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_update")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_update_launch.argtypes = [p, p, ll, p, p, p, ll, p, ll, p, p,
-                                      i, i, i, i, i, i, p]
+                                      i, i, i, i, i, i, i, i, i, i, i, p]
     lib.ssd_update_launch.restype = i
     return lib
 
@@ -102,13 +153,14 @@ def ssd_update(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     if out is None:
         out = torch.empty_like(h)
     y = torch.empty((B, H, P), dtype=torch.float32, device=h.device)
+    plan = ssd_plan(B, H, P, N, _build.sm_count(h.device.index))
     lib = _lib()
     with torch.cuda.device(h.device):
         rc = lib.ssd_update_launch(
             h.data_ptr(), x.data_ptr(), x.stride(0), dt.data_ptr(),
             A.data_ptr(), Bm.data_ptr(), Bm.stride(0), Cm.data_ptr(),
             Cm.stride(0), out.data_ptr(), y.data_ptr(), B, H, P, N,
-            Bm.shape[1], int(x.dtype == torch.bfloat16),
+            Bm.shape[1], int(x.dtype == torch.bfloat16), *plan,
             torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(rc, "ssd_update")
     global launches

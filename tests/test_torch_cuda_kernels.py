@@ -526,7 +526,9 @@ def test_paged_scheduler_graph_replays_equal_plain_calls(cuda, kv_quant, K):
 @pytest.mark.parametrize("shape,parametric,strided", [
     ((1, 2560), True, False), ((512, 3584), True, False),
     ((3, 5120), False, False), ((4, 7, 2048), True, True),
-    ((4, 4096), True, False), ((2, 6, 96), False, True)])
+    ((4, 4096), True, False), ((2, 6, 96), False, True),
+    ((3, 2560), True, False), ((4097, 2560), True, False),
+    ((4097, 5120), False, False), ((3, 7, 3584), True, True)])
 def test_rmsnorm(cuda, dtype, shape, parametric, strided):
     """Kernel 5 against its plain version: decode and prefill rows, the
     non-parametric variant and a strided slice (the last position of a
@@ -549,6 +551,31 @@ def test_rmsnorm(cuda, dtype, shape, parametric, strided):
         _close(out, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D", [(1, 2560), (4, 5120), (3, 3584), (2048, 3584),
+                                 (4097, 2560)])
+def test_rmsnorm_repeat_and_graph_replay(cuda, dtype, R, D):
+    """Kernel 5: two calls are bit-equal, and a call captured as a CUDA
+    graph (one launch, the output its only allocation) replayed with new x
+    three times equals an eager call on that x bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(R + D)
+    x = (3 * torch.randn((R, D), generator=g, device=cuda)).to(dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(dtype)
+    assert torch.equal(rms_ops.rmsnorm(x, w), rms_ops.rmsnorm(x, w))
+    static_x = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    before = rms_ops.launches
+    with torch.cuda.graph(graph):
+        out = rms_ops.rmsnorm(static_x, w)
+    assert rms_ops.launches == before + 1
+    for _ in range(3):
+        new_x = (3 * torch.randn((R, D), generator=g, device=cuda)).to(dtype)
+        static_x.copy_(new_x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, rms_ops.rmsnorm(new_x, w))
+
+
 def _ssd_case(dev, B, H, P, N, G, dtype, seed, strided=False):
     g = torch.Generator(device=dev).manual_seed(seed)
     h = torch.randn((B, H, P, N), generator=g, device=dev)
@@ -569,7 +596,9 @@ def _ssd_case(dev, B, H, P, N, G, dtype, seed, strided=False):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,P,N,G,strided", [
     (1, 80, 64, 128, 1, True), (2, 64, 64, 64, 1, False),
-    (3, 8, 16, 32, 2, True), (1, 4, 8, 16, 4, False), (2, 6, 5, 24, 3, False)])
+    (3, 8, 16, 32, 2, True), (1, 4, 8, 16, 4, False), (2, 6, 5, 24, 3, False),
+    (1, 8, 37, 16, 1, False), (1, 8, 64, 20, 2, True), (2, 4, 100, 256, 2, True),
+    (1, 80, 61, 128, 1, False)])
 def test_ssd_update(cuda, dtype, B, H, P, N, G, strided):
     """Kernel 4 against its plain version, out of place and in place (h'
     written over h); h' is f32 and computed as the plain version does."""
@@ -585,6 +614,34 @@ def test_ssd_update(cuda, dtype, B, H, P, N, G, strided):
     h_in, y2 = ssd_ops.ssd_update(h, x, dt, A, Bm, Cm, out=h)
     torch.cuda.synchronize()
     assert h_in is h and torch.equal(h, h_new) and torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,P,N,G", [
+    (1, 80, 64, 128, 1), (1, 64, 64, 64, 1), (2, 4, 100, 256, 2), (1, 8, 64, 20, 2)])
+def test_ssd_update_repeat_and_graph_replay(cuda, dtype, B, H, P, N, G):
+    """Kernel 4: two calls are bit-equal; an in-place call (out=h)
+    captured as a CUDA graph (one launch, y its only allocation) and
+    replayed with new inputs three times gives h' and y bit-equal to an
+    eager call on those inputs."""
+    args = _ssd_case(cuda, B, H, P, N, G, dtype, 7 * H + N)
+    h1, y1 = ssd_ops.ssd_update(*args)
+    h2, y2 = ssd_ops.ssd_update(*args)
+    assert torch.equal(h1, h2) and torch.equal(y1, y2)
+    static = [t.clone() for t in args]
+    graph = torch.cuda.CUDAGraph()
+    before = ssd_ops.launches
+    with torch.cuda.graph(graph):
+        _, y = ssd_ops.ssd_update(*static, out=static[0])
+    assert ssd_ops.launches == before + 1
+    for seed in range(3):
+        new = _ssd_case(cuda, B, H, P, N, G, dtype, seed)
+        want_h, want_y = ssd_ops.ssd_update(*new)
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static[0], want_h) and torch.equal(y, want_y)
 
 
 def test_ssd_update_full_decay(cuda):

@@ -73,3 +73,43 @@ def test_model_norm_routes_cpu_tensors_to_the_plain_version(parametric):
 def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="no rmsnorm"):
         ops.rmsnorm(torch.zeros((2, 8), device="meta"), None)
+
+
+# chip_smoke phase 5's widths and row counts, ragged row counts, and
+# narrow rows of the CPU tests above
+NORM_WIDTHS = (2048, 2560, 3584, 4096, 5120)
+NORM_ROWS = (1, 4, 512, 2048, 3, 4097)
+
+
+@pytest.mark.parametrize("n_sm", [132, 16])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("R,D", [(R, D) for D in NORM_WIDTHS for R in NORM_ROWS]
+                         + [(1, 64), (7, 96), (300, 128), (4097, 8192)])
+def test_norm_plan_covers_each_row_and_chunk_once(R, D, itemsize, n_sm):
+    """The kernel's plan, as the kernel walks it: every row of R by exactly
+    one warp group, every 16-byte chunk of a row by exactly one lane of
+    the group; blocks within the kernel's thread limit at the plan's
+    chunks a lane, and at most 15 groups (named barriers) when a row has
+    several warps."""
+    plan = ops.norm_plan(R, D, itemsize, n_sm)
+    threads = 32 * plan.warps_per_row * plan.rows_per_block
+    assert threads <= 1024 and threads <= ops.max_threads(plan.chunks)
+    assert 1 <= plan.chunks <= ops.MAX_CHUNKS and plan.grid >= 1
+    assert plan.warps_per_row == 1 or plan.rows_per_block <= 15
+    rows = [r for b in range(plan.grid) for g in range(plan.rows_per_block)
+            for r in ops.rows_of(plan, R, b, g)]
+    assert sorted(rows) == list(range(R))
+    nvec = D * itemsize // 16
+    chunks = [c for lane in range(32 * plan.warps_per_row)
+              for c in ops.chunks_of(plan, nvec, lane)]
+    assert sorted(chunks) == list(range(nvec))
+    if R < n_sm:      # a decode row: one block each, a lane for every chunk
+        assert plan.grid == R and plan.rows_per_block == 1
+        assert plan.chunks == (1 if nvec <= 1024 else 2)
+
+
+def test_norm_plan_refuses_rows_it_cannot_hold():
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.norm_plan(1, 16384, 4, 132)         # 4096 chunks: past 32 warps of 2
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.norm_plan(2048, 5120, 2, 132, warps_per_row=1)   # 20 chunks a lane

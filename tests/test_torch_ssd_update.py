@@ -92,3 +92,38 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="no ssd_update"):
         ops.ssd_update(t, t[..., 0], t[:, :, 0, 0], t[0, :, 0, 0],
                        t[:, :1, 0], t[:, :1, 0])
+
+
+@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("rows_per_thread", [None, 1, 2, 4])
+@pytest.mark.parametrize("B,H,P,N,G", [
+    (1, 80, 64, 128, 1),     # mamba2-2.7b decode shape
+    (1, 64, 64, 64, 1),      # zamba2-1.2b decode shape
+    (3, 8, 16, 32, 2),
+    (2, 6, 5, 24, 3),        # P below one block's rows, N / 4 not a power of 2
+    (1, 8, 37, 16, 1),       # N 16: four lanes a row
+    (1, 8, 64, 20, 2),       # N 20: two chunks on one lane of four
+    (2, 4, 100, 256, 2),     # N 256: two chunks a lane; ragged P
+])
+def test_ssd_plan_covers_each_state_chunk_once(B, H, P, N, G, rows_per_thread, warps):
+    """The kernel's plan, as the kernel indexes it: within a (b, head)
+    tile every row of P and every 16-byte chunk of a row by exactly one
+    thread; blocks of at most 256 threads."""
+    plan = ops.ssd_plan(B, H, P, N, 132, rows_per_thread=rows_per_thread, warps=warps)
+    assert plan.lanes * plan.chunks * 4 >= N and plan.chunks in (1, 2)
+    assert plan.rows_per_thread in (1, 2, 4) and 32 * plan.warps <= 256
+    cover = [(p, c) for blk in range(plan.grid) for t in range(32 * plan.warps)
+             for p in ops.ssd_rows(plan, blk, t) if p < P
+             for c in ops.ssd_columns(plan, N, t)]
+    assert sorted(cover) == [(p, c) for p in range(P) for c in range(0, N, 4)]
+
+
+def test_ssd_plan_fills_the_card_at_the_model_shapes():
+    """A thread takes the most rows that still leave MIN_BLOCKS_PER_SM
+    blocks an SM."""
+    for B, H, P, N in ((1, 80, 64, 128), (1, 64, 64, 64)):
+        plan = ops.ssd_plan(B, H, P, N, 132)
+        assert B * H * plan.grid >= ops.MIN_BLOCKS_PER_SM * 132 or plan.rows_per_thread == 1
+        if plan.rows_per_thread < 4:
+            wider = ops.ssd_plan(B, H, P, N, 132, rows_per_thread=2 * plan.rows_per_thread)
+            assert B * H * wider.grid < ops.MIN_BLOCKS_PER_SM * 132
