@@ -76,21 +76,27 @@ Phases, in order; each raises on failure and nothing catches:
     16 greedy tokens must be identical and the first-step logits agree
     within 1e-4 x max|logit|.
 10. the batch-1 main path at full width: qwen2.5-7b, 28 layers, bf16,
-    random weights drawn on the card; three requests of 2048 prompt
-    tokens through ``DecodeEngine`` (two ``generate_streamed``, one
-    ``generate_fused``, 32 new tokens each); the decode-attention launch
-    count must be 28 x decode steps and the RMSNorm count 57 x (decode
-    steps + prefills); first-step logits of "cuda" and "sdpa" must
-    agree; p50 step time against the analytic floor; wall of a 2048-token
-    prefill (synchronised, median of 3); the step under torch.profiler
-    must show 28 ``decode_attention_mma`` kernels and no
+    random weights drawn on the card; ``DecodeEngine`` serves the step
+    as one captured CUDA graph: one warm-up request of each loop at the
+    timed shape (captures), then three requests of 2048 prompt tokens
+    (two ``generate_streamed``, one ``generate_fused``, 32 new tokens
+    each); the kernels launched on the card (the wrappers' counts minus
+    what captures recorded plus what replays launched) must be 28
+    decode attentions x decode steps and 57 RMSNorms x (decode steps +
+    prefills); first-step logits of "cuda" and "sdpa" must agree; p50
+    step time of the graph step and, beside it, the eager p50
+    (``measure_cell`` of plain ``decode_step`` calls, one session),
+    both against the analytic floor; wall of a 2048-token prefill
+    (synchronised, median of 3); a plain step under torch.profiler must
+    show 28 ``decode_attention_mma`` kernels and no
     ``decode_attention_merge``.
 11. the int4 main path: the same model quantised on the card
-    (``int4_fused``), one request; the int4 launch count must be 7 x 28
-    per decode step plus the prefill's; wall of a 2048-token prefill
-    (median of 3), which must launch the int4 kernel 7 x 28 times; the
-    step's device time under torch.profiler (as in phase 10), which must
-    show 7 x 28 GEMV kernels per step and no split-K reduce kernel.
+    (``int4_fused``), one request through the engine's graph step; the
+    int4 launch count must be 7 x 28 per decode step plus the prefill's;
+    graph and eager p50; wall of a 2048-token prefill (median of 3),
+    which must launch the int4 kernel 7 x 28 times; the step's device
+    time under torch.profiler (as in phase 10), which must show 7 x 28
+    GEMV kernels per step and no split-K reduce kernel.
 12. the paged serving path at full width: qwen2.5-7b, 28 layers, bf16,
     8 sessions (prompts 2048+, 32+ new tokens) through 4 paged slots,
     page 16, prefill chunk 512, through ``generate_continuous`` twice:
@@ -104,23 +110,38 @@ Phases, in order; each raises on failure and nothing catches:
     ``paged_merge``), and first-step logits of "cuda" and "sdpa" must agree;
     p50 decode time per token, aggregate tok/s and the device-busy share.
 13. mamba2-2.7b at full width and depth (64 layers, bf16, random weights
-    drawn on the card): the requests of phase 10; launches must be 64
-    SSD updates per decode step and 129 RMSNorms per decode step and
-    prefill; streamed and fused tokens identical; the first-step logits
-    must agree within 5e-2 x max|logit| with one decode step of the same
-    weights and prefilled state copied to the CPU (plain versions); p50
-    step against the floor, device time per step.
+    drawn on the card): the requests of phase 10 through the engine's
+    graph step; launches on the card must be 64 SSD updates per decode
+    step and 129 RMSNorms per decode step and prefill; streamed and
+    fused tokens identical; the first-step logits must agree within
+    5e-2 x max|logit| with one decode step of the same weights and
+    prefilled state copied to the CPU (plain versions); graph and eager
+    p50 against the floor, device time per step.
 14. zamba2-1.2b at full width and depth (38 Mamba2 layers, 7 applications
     of the shared attention block): the same, with 38 SSD updates, 7
     decode attentions and 91 RMSNorms per decode step; the profiled step
     must show 7 ``decode_attention_mma`` kernels and no merge.
-15. the kernels line: one JSON object with every ported kernel's
+15. the dispatch A/B (the paper's CUDA-Graphs experiment) at qwen2.5-7b
+    full width, bf16, batch 1, ctx 2048: ``Model.step_program``'s
+    executors under ``core/protocol.py``'s ``run_ab`` (5 warm-up and 30
+    measured steps, p50 per arm, paired speedups with a bootstrap 95%
+    CI), eager against full_jit and stage_jit against full_jit over 3
+    fresh sessions each (a session: its own cache prefilled from its
+    seed, weights shared; ``pos`` put back to 2048 before each arm);
+    R_floor per arm; the three arms' greedy tokens over 16 steps must be
+    identical and their first-step logits agree within 2e-2 x max|logit|
+    (whether they are bit-equal is logged); one profiled step per arm:
+    kernels, summed kernel time, span from the first kernel's start to
+    the last one's end, and the in-step device us per call of kernels 1
+    and 5.
+    Its numbers go on a ``{"dispatch_ab": ...}`` line.
+16. the kernels line: one JSON object with every ported kernel's
     numbers (all five: no TPU kernel is left to port; ``device_us`` and
     ``b2b_us`` for kernels 4 and 5, null for the others); ``launches`` sums
     the main paths that run the kernel and ``launches_by_path`` names
     each path's count; the int4 row adds the M=2048 sums (``prefill_*``)
     and the prefill's launches and walls.
-16. last line: ``{"ok": true, "device": {...}}``.
+17. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only kernels
 
@@ -892,13 +913,62 @@ def prefill_wall(engine, batch, max_len, reps=3):
     return statistics.median(walls) * 1e3
 
 
+def zero_counts():
+    """Every kernel wrapper's ``launches`` and the capture / replay
+    tallies set to 0, just before a main path is driven."""
+    import importlib
+    from repro_torch.core import dispatch
+    from repro_torch.kernels._build import SOURCES
+    for name in SOURCES:
+        importlib.import_module(f"repro_torch.kernels.{name}.ops").launches = 0
+    dispatch.captured_launches.clear()
+    dispatch.replay_launches.clear()
+
+
+def launched():
+    """Kernels launched on the card since ``zero_counts``, by kernel: the
+    wrappers' counts minus what captures recorded (counted, not run) plus
+    what graph replays launched (run, not counted)."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import launch_counts
+    return {name: n - dispatch.captured_launches.get(name, 0)
+            + dispatch.replay_launches.get(name, 0)
+            for name, n in launch_counts().items()}
+
+
+def eager_p50(engine, batch, tok):
+    """The eager arm's p50 (ms): ``measure_cell`` (5 warm-up + 30
+    measured steps, synchronised) of plain ``decode_step`` calls over a
+    prefilled cache of its own, one session."""
+    from repro_torch.core.protocol import measure_cell
+    with torch.inference_mode():
+        cache = engine.new_cache(1, PROMPT + 64)
+        engine.model.prefill(engine.params, batch, cache)
+        cell = measure_cell(lambda: engine.model.decode_step(engine.params, cache, tok)[0],
+                            name="eager")
+    del cache
+    return cell.p50_ms
+
+
+def serve_graph_step(engine, batch, max_len):
+    """The engine's graph step served: a warm-up request of each loop at
+    the timed shape (their graphs are captured there), then, counts at
+    0, two streamed requests and one fused.  Returns the runs and the
+    kernels launched on the card by them."""
+    engine.generate_streamed(batch, max_len=max_len, n_new=NEW)
+    engine.generate_fused(batch, max_len=max_len, n_new=NEW)
+    zero_counts()
+    runs = [engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True),
+            engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True),
+            engine.generate_fused(batch, max_len=max_len, n_new=NEW)]
+    return runs, launched()
+
+
 def main_path(dev):
     from repro_torch.configs import get_config
     from repro_torch.core.floor import floor_cell
     from repro_torch.core.hardware import GPU_H100
-    from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.int4_matmul import ops as i4_ops
-    from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.models.model import Model
     from repro_torch.serving import DecodeEngine
     log("== phase 10: main path, qwen2.5-7b full width (28 layers, bf16), "
@@ -913,17 +983,13 @@ def main_path(dev):
     engine = DecodeEngine(model, params)
     batch = prompt_batch(cfg.vocab_size, dev)
     max_len = PROMPT + NEW + 1
-    engine.generate_streamed(prompt_batch(cfg.vocab_size, dev, 16), max_len=64,
-                             n_new=4)   # warm-up (cuBLAS handles, caches)
-
-    da_ops.launches = i4_ops.launches = rms_ops.launches = 0
-    runs = [engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True),
-            engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True),
-            engine.generate_fused(batch, max_len=max_len, n_new=NEW)]
-    da_launches, i4_main, rms = da_ops.launches, i4_ops.launches, rms_ops.launches
+    runs, counts = serve_graph_step(engine, batch, max_len)
+    da_launches, i4_main = counts["decode_attention"], counts["int4_matmul"]
+    rms = counts["rmsnorm"]
     steps = 3 * (NEW - 1)
     norms = 2 * cfg.n_layers + 1
-    log(f"  decode_attention launches {da_launches} ({cfg.n_layers} x {steps} "
+    log(f"  engine graph step (captured once per loop at this shape, replayed): "
+        f"decode_attention launches {da_launches} ({cfg.n_layers} x {steps} "
         f"decode steps = {cfg.n_layers * steps}); rmsnorm launches {rms} ({norms} "
         f"x ({steps} decode steps + 3 prefills) = {norms * (steps + 3)}); "
         f"int4_matmul launches {i4_main}")
@@ -943,10 +1009,13 @@ def main_path(dev):
     log(f"  prefill of {PROMPT} tokens (bf16): {pre_bf16:.4f} ms wall, median of 3")
     step_s = runs[0].step_times_s + runs[1].step_times_s
     p50 = statistics.median(step_s) * 1e3
+    p50_eager = eager_p50(engine, batch, runs[0].tokens[:, :1])
     fc = floor_cell(cfg, GPU_H100, PROMPT)
-    log(f"  p50 step {p50:.4f} ms (streamed, n={len(step_s)}); analytic floor "
-        f"{fc.t_floor_ms:.4f} ms (floor_cell qwen2.5-7b, {GPU_H100.name}, ctx "
-        f"{PROMPT}); R_floor {fc.t_floor_ms / p50:.4f}")
+    log(f"  p50 step {p50:.4f} ms (engine graph step, streamed, n={len(step_s)}); "
+        f"eager p50 {p50_eager:.4f} ms (plain decode_step calls, measure_cell); "
+        f"analytic floor {fc.t_floor_ms:.4f} ms (floor_cell qwen2.5-7b, "
+        f"{GPU_H100.name}, ctx {PROMPT}); R_floor {fc.t_floor_ms / p50:.4f} "
+        f"(eager {fc.t_floor_ms / p50_eager:.4f})")
     log("  tok/s: " + ", ".join(f"{r.tokens_per_s:.2f}" for r in runs)
         + " (streamed, streamed, fused)")
 
@@ -971,7 +1040,7 @@ def main_path(dev):
         f"(tol 5e-2 x max|logit|)")
     if diff > 5e-2 * scale:
         raise AssertionError("bf16 first-step logits of cuda and sdpa disagree")
-    _, kernels = device_time(model, engine, batch, max_len, tok, p50)
+    _, kernels = device_time(model, engine, batch, max_len, tok, p50, p50_eager)
     check_attention_kernels(kernels, cfg.n_layers, "qwen2.5-7b bf16 step")
     torch.cuda.empty_cache()
 
@@ -990,13 +1059,15 @@ def main_path(dev):
     if pre_launches != per_step:
         raise AssertionError("the int4 prefill did not run the int4 kernel for "
                              "every quantised matmul")
-    da_ops.launches = i4_ops.launches = 0
+    engine_q.generate_streamed(batch, max_len=max_len, n_new=NEW)   # capture
+    zero_counts()
     res = engine_q.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True)
-    i4_launches, da_q = i4_ops.launches, da_ops.launches
+    counts = launched()
+    i4_launches, da_q = counts["int4_matmul"], counts["decode_attention"]
     want = per_step * (NEW - 1) + per_step
-    log(f"  int4_matmul launches {i4_launches} (7 x {cfg.n_layers} x {NEW - 1} "
-        f"decode steps + {per_step} at prefill = {want}); decode_attention "
-        f"launches {da_q}")
+    log(f"  engine graph step: int4_matmul launches {i4_launches} (7 x "
+        f"{cfg.n_layers} x {NEW - 1} decode steps + {per_step} at prefill = "
+        f"{want}); decode_attention launches {da_q}")
     if i4_launches != want:
         raise AssertionError("the int4 path did not run the int4 kernel for "
                              "every quantised matmul")
@@ -1004,14 +1075,16 @@ def main_path(dev):
         raise AssertionError(f"int4 tokens {tuple(res.tokens.shape)}")
     from repro_torch.quant import tree_weight_traffic
     p50_q = statistics.median(res.step_times_s) * 1e3
+    p50_q_eager = eager_p50(engine_q, batch, res.tokens[:, :1])
     fq = floor_cell(cfg, GPU_H100, PROMPT, weight_dtype_bytes=0.5)
     own = (tree_weight_traffic(engine_q.params) + fq.kv_bytes) / GPU_H100.hbm_bw * 1e3
-    log(f"  p50 step {p50_q:.4f} ms; analytic int4 floor {fq.t_floor_ms:.4f} ms "
+    log(f"  p50 step {p50_q:.4f} ms (engine graph step); eager p50 "
+        f"{p50_q_eager:.4f} ms; analytic int4 floor {fq.t_floor_ms:.4f} ms "
         f"(floor_cell weight_dtype_bytes=0.5); this path's own bytes (int4 "
         f"linears, bf16 embedding and head, bf16 KV) give {own:.4f} ms; "
         f"{res.tokens_per_s:.2f} tok/s")
     busy_q, kernels = device_time(model, engine_q, batch, max_len,
-                                  res.tokens[:, :1], p50_q)
+                                  res.tokens[:, :1], p50_q, p50_q_eager)
     if kernels:
         gemv = sum(n for k, n in kernels.items() if "int4_gemv" in k)
         reduce = sum(n for k, n in kernels.items() if "splitk" in k)
@@ -1022,16 +1095,18 @@ def main_path(dev):
                                  "quantised matmul")
     prefill = dict(prefill_launches=pre_launches, prefill_wall_ms=pre_int4,
                    prefill_wall_bf16_ms=pre_bf16, step_device_ms=busy_q,
-                   step_p50_ms=p50_q)
+                   step_p50_ms=p50_q, step_eager_p50_ms=p50_q_eager)
     return da_launches, i4_launches, rms, prefill
 
 
-def device_time(model, engine, batch, max_len, tok, p50_ms, steps=4):
-    """Kernel time per decode step under torch.profiler, against the
-    unprofiled p50: the device's busy share of a step.  Returns the busy
-    ms per step and {kernel name: launches per step}; without device
-    time from the profiler, the steps' span between CUDA events instead
-    (idle gaps included) and no names."""
+def device_time(model, engine, batch, max_len, tok, p50_ms, p50_eager_ms, steps=4):
+    """Kernel time per decode step under torch.profiler (plain
+    ``decode_step`` calls: the same kernels the graph replays), against
+    the unprofiled p50 of the graph step and of the eager arm: the
+    device's busy share of a step.  Returns the busy ms per step and
+    {kernel name: launches per step}; without device time from the
+    profiler, the steps' span between CUDA events instead (idle gaps
+    included) and no names."""
     from torch.profiler import ProfilerActivity, profile
     with torch.inference_mode():
         _, cache = engine.prefill(batch, max_len)
@@ -1055,8 +1130,9 @@ def device_time(model, engine, batch, max_len, tok, p50_ms, steps=4):
                 f"CUDA events around {steps} steps give {span:.4f} ms per step "
                 f"(idle gaps included) of the {p50_ms:.4f} ms p50 step")
             return span, {}
-    log(f"  device time per step (torch.profiler, {steps} steps): {busy:.4f} ms "
-        f"busy of the {p50_ms:.4f} ms p50 step = {busy / p50_ms:.1%}; "
+    log(f"  device time per step (torch.profiler, {steps} eager steps): {busy:.4f} "
+        f"ms busy = {busy / p50_ms:.1%} of the {p50_ms:.4f} ms graph p50 step, "
+        f"{busy / p50_eager_ms:.1%} of the {p50_eager_ms:.4f} ms eager p50; "
         f"{sum(r[2] for r in rows) // steps} kernels per step")
     for t, name, n in sorted(rows, reverse=True)[:8]:
         log(f"    {t / 1e3 / steps:8.4f} ms/step  {n // steps:5d}x  {name[:90]}")
@@ -1384,9 +1460,6 @@ def ssm_main_path(dev, name, phase):
     from repro_torch.configs import get_config
     from repro_torch.core.floor import floor_cell
     from repro_torch.core.hardware import GPU_H100
-    from repro_torch.kernels.decode_attention import ops as da_ops
-    from repro_torch.kernels.rmsnorm import ops as rms_ops
-    from repro_torch.kernels.ssd_update import ops as ssd_ops
     from repro_torch.models.model import Model
     from repro_torch.serving import DecodeEngine
     cfg = get_config(name)
@@ -1403,22 +1476,16 @@ def ssm_main_path(dev, name, phase):
     engine = DecodeEngine(model, params)
     batch = prompt_batch(cfg.vocab_size, dev)
     max_len = PROMPT + NEW + 1
-    engine.generate_streamed(prompt_batch(cfg.vocab_size, dev, 16), max_len=64,
-                             n_new=4)   # warm-up (cuBLAS handles, caches)
-
-    da_ops.launches = ssd_ops.launches = rms_ops.launches = 0
     t0 = time.perf_counter()
-    runs = [engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True),
-            engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True),
-            engine.generate_fused(batch, max_len=max_len, n_new=NEW)]
+    runs, launches = serve_graph_step(engine, batch, max_len)
     wall = time.perf_counter() - t0
-    counts = dict(ssd_update=ssd_ops.launches, rmsnorm=rms_ops.launches,
-                  decode_attention=da_ops.launches)
+    counts = {k: launches[k] for k in ("ssd_update", "rmsnorm", "decode_attention")}
     steps = 3 * (NEW - 1)
     norms = 2 * cfg.n_layers + 2 * n_apps + 1
     want = dict(ssd_update=cfg.n_layers * steps, rmsnorm=norms * (steps + 3),
                 decode_attention=n_apps * steps)
-    log(f"  three requests in {wall:.2f} s; launches {counts}; want ssd_update "
+    log(f"  engine graph step: two warm-up and three timed requests in {wall:.2f} "
+        f"s; launches by the timed ones {counts}; want ssd_update "
         f"{cfg.n_layers} x {steps} decode steps, rmsnorm {norms} x ({steps} "
         f"decode steps + 3 prefills), decode_attention {n_apps} x {steps}: {want}")
     if counts != want:
@@ -1432,13 +1499,16 @@ def ssm_main_path(dev, name, phase):
         raise AssertionError("streamed and fused greedy tokens differ")
     step_s = runs[0].step_times_s + runs[1].step_times_s
     p50 = statistics.median(step_s) * 1e3
+    tok = runs[0].tokens[:, :1]
+    p50_eager = eager_p50(engine, batch, tok)
     fc = floor_cell(cfg, GPU_H100, PROMPT)
-    log(f"  p50 step {p50:.4f} ms (streamed, n={len(step_s)}); analytic floor "
-        f"{fc.t_floor_ms:.4f} ms (floor_cell {name}, {GPU_H100.name}, ctx "
-        f"{PROMPT}); R_floor {fc.t_floor_ms / p50:.4f}")
+    log(f"  p50 step {p50:.4f} ms (engine graph step, streamed, n={len(step_s)}); "
+        f"eager p50 {p50_eager:.4f} ms (plain decode_step calls, measure_cell); "
+        f"analytic floor {fc.t_floor_ms:.4f} ms (floor_cell {name}, "
+        f"{GPU_H100.name}, ctx {PROMPT}); R_floor {fc.t_floor_ms / p50:.4f} "
+        f"(eager {fc.t_floor_ms / p50_eager:.4f})")
     log("  tok/s: " + ", ".join(f"{r.tokens_per_s:.2f}" for r in runs)
         + " (streamed, streamed, fused)")
-    tok = runs[0].tokens[:, :1]
     with torch.inference_mode():
         t0 = time.perf_counter()
         _, cache = engine.prefill(batch, max_len)
@@ -1468,12 +1538,175 @@ def ssm_main_path(dev, name, phase):
         raise AssertionError(f"{name}: first-step logits of the card and the "
                              "CPU disagree")
     del cache, cpu_cache, cpu_model
-    _, kernels = device_time(model, engine, batch, max_len, tok, p50)
+    _, kernels = device_time(model, engine, batch, max_len, tok, p50, p50_eager)
     if n_apps:
         check_attention_kernels(kernels, n_apps, f"{name} step")
     del params, engine, model
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------- phase 15
+AB_SESSIONS = 3
+TRACES = ROOT / "build" / "traces"
+
+
+def device_events(fn):
+    """One call of ``fn`` under torch.profiler: its device activities as
+    (start us, end us, name, category: kernel, gpu_memcpy or
+    gpu_memset), in order, read from the profiler's Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    TRACES.mkdir(parents=True, exist_ok=True)
+    path = TRACES / "step.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return sorted((e["ts"], e["ts"] + e["dur"], e["name"], e["cat"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def step_view(events, names):
+    """One profiled step: its kernels, their summed time and their span
+    (the first kernel's start to the last one's end, so a graph's launch
+    latency before its first kernel is left out), its copies and fills,
+    and the device us per call of the kernels whose names hold each of
+    ``names``."""
+    kernels = [e for e in events if e[3] == "kernel"]
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel in the step")
+    per_call = {}
+    for key in names:
+        durs = [e - s for s, e, n, _ in kernels if key in n]
+        per_call[key] = sum(durs) / len(durs) if durs else None
+    return dict(kernels=len(kernels), copies=len(events) - len(kernels),
+                kernel_ms=sum(e - s for s, e, _, _ in kernels) / 1e3,
+                span_ms=(kernels[-1][1] - kernels[0][0]) / 1e3, us_per_call=per_call)
+
+
+@torch.inference_mode()
+def dispatch_ab(dev):
+    """The paper's CUDA-Graphs A/B (§5) at qwen2.5-7b full width: the
+    step program's three executors under the protocol of
+    ``core/protocol.py``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import stats
+    from repro_torch.core.dispatch import MODES
+    from repro_torch.core.floor import floor_cell
+    from repro_torch.core.hardware import GPU_H100
+    from repro_torch.core.protocol import MEASURED_STEPS, WARMUP_STEPS, run_ab
+    from repro_torch.models.model import Model
+    log(f"== phase 15: dispatch A/B, qwen2.5-7b full width (28 layers, bf16), "
+        f"batch 1, ctx {PROMPT}: eager / stage_jit / full_jit executors, "
+        f"{WARMUP_STEPS} warm-up + {MEASURED_STEPS} measured steps, "
+        f"{AB_SESSIONS} fresh sessions per A/B")
+    cfg = get_config("qwen2.5-7b")
+    model = Model(cfg, decode_backend="cuda", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    max_len = PROMPT + 64
+    held = {}
+
+    def session(s):
+        """Session ``s``'s cache, prefilled from its own seed, and its
+        first token; the previous session's cache is dropped first."""
+        if s not in held:
+            held.clear()
+            cache = model.init_cache(1, max_len)
+            logits, _ = model.prefill(params, prompt_batch(cfg.vocab_size, dev, seed=s),
+                                      cache)
+            held[s] = (cache, torch.argmax(logits[:, -1], -1, keepdim=True)
+                       .to(torch.int32))
+        return held[s]
+
+    def arm(mode):
+        def make(s):
+            cache, tok = session(s)
+            cache["pos"].fill_(PROMPT)      # both arms decode over one context
+            run = model.step_program(params, cache).executor(mode)
+            state = {"tokens": tok, "cache": cache}
+            return lambda: run(state)["logits"]
+        return make
+
+    t0 = time.perf_counter()
+    fc = floor_cell(cfg, GPU_H100, PROMPT)
+    out = {"cell": f"qwen2.5-7b bf16 batch 1 ctx {PROMPT}",
+           "floor_ms": fc.t_floor_ms, "n_sessions": AB_SESSIONS}
+    for base in ("eager", "stage_jit"):
+        ab = run_ab(arm(base), arm("full_jit"), n_sessions=AB_SESSIONS,
+                    name=f"{base}/full_jit")
+        summ = ab.summary()
+        out[f"{base}_vs_full_jit"] = summ
+        lo, hi = summ["speedup_ci95"]
+        log(f"  {base} vs full_jit: {base} p50 mean {summ['baseline_mean_ms']:.4f} ms "
+            f"(cv {summ['baseline_cv']:.4f}), full_jit {summ['treated_mean_ms']:.4f} ms "
+            f"(cv {summ['treated_cv']:.4f}); paired speedup "
+            f"{summ['mean_speedup']:.4f}x, 95% CI [{lo:.4f}, {hi:.4f}] over "
+            f"{AB_SESSIONS} sessions; R_floor {fc.t_floor_ms / summ['baseline_mean_ms']:.4f}"
+            f" / {fc.t_floor_ms / summ['treated_mean_ms']:.4f} ({base} / full_jit, "
+            f"floor {fc.t_floor_ms:.4f} ms)")
+        log("    per session (ms): " + ", ".join(
+            f"{r['baseline_ms']:.4f} / {r['treated_ms']:.4f}" for r in summ["per_session"]))
+    p50s = {"eager": out["eager_vs_full_jit"]["baseline_mean_ms"],
+            "stage_jit": out["stage_jit_vs_full_jit"]["baseline_mean_ms"],
+            "full_jit": stats.mean([out[k]["treated_mean_ms"] for k in
+                                    ("eager_vs_full_jit", "stage_jit_vs_full_jit")])}
+    out["p50_ms"] = p50s
+    out["r_floor"] = {m: fc.t_floor_ms / p for m, p in p50s.items()}
+
+    # identical greedy tokens over 16 steps, first-step logits; one
+    # profiled step per arm.  The first call of a graph arm is its eager
+    # warm-up and capture, so the steps compared are the calls after it:
+    # replays of the graphs.
+    cache, tok0 = session(0)
+    toks, first, views = {}, {}, {}
+    for mode in MODES:
+        cache["pos"].fill_(PROMPT)
+        run = model.step_program(params, cache).executor(mode)
+        run({"tokens": tok0, "cache": cache})
+        cache["pos"].fill_(PROMPT)
+        tok, seq = tok0.clone(), []
+        for i in range(16):
+            logits = run({"tokens": tok, "cache": cache})["logits"]
+            if i == 0:
+                first[mode] = logits.float().clone()
+            tok = torch.argmax(logits[:, -1], -1, keepdim=True).to(torch.int32)
+            seq.append(int(tok))
+        toks[mode] = seq
+        cache["pos"].fill_(PROMPT)
+        views[mode] = step_view(device_events(
+            lambda: run({"tokens": tok0, "cache": cache})),
+            ("decode_attention_mma", "int4_gemv", "rmsnorm_kernel"))
+    for mode in MODES:
+        v = views[mode]
+        log(f"  {mode}: greedy tokens {toks[mode]}; one profiled step: "
+            f"{v['kernels']} kernels (+{v['copies']} copies), {v['kernel_ms']:.4f} "
+            f"ms summed, span {v['span_ms']:.4f} ms; in-step us per call "
+            + ", ".join(f"{k} {u:.3f}" for k, u in v["us_per_call"].items()
+                        if u is not None))
+    same = all(toks[m] == toks["eager"] for m in MODES)
+    scale = max(1.0, float(first["eager"].abs().max()))
+    diffs = {m: float((first[m] - first["eager"]).abs().max()) for m in MODES}
+    bit_equal = {m: bool(torch.equal(first[m], first["eager"])) for m in MODES}
+    log(f"  greedy tokens over 16 steps {'identical' if same else 'DIFFER'} across "
+        f"the arms; first-step logits (graph arms: a replay) against eager: "
+        f"max_abs_diff {diffs}, "
+        f"bit-equal {bit_equal} (tol {TOL[torch.bfloat16]} x {scale:.4g})")
+    if not same:
+        raise AssertionError("the dispatch arms' greedy tokens differ")
+    if max(diffs.values()) > TOL[torch.bfloat16] * scale:
+        raise AssertionError("the dispatch arms' first-step logits disagree")
+    out.update(tokens_identical=same, first_logits_bit_equal=bit_equal,
+               profiled_step=views, seconds=time.perf_counter() - t0)
+    log(f"  phase 15 took {out['seconds']:.1f} s")
+    held.clear()
+    del params, model
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -1528,6 +1761,7 @@ def main(argv=None) -> int:
     paged_launches, paged_norms = paged_serving(dev)
     ssm = [ssm_main_path(dev, "mamba2-2.7b", 13),
            ssm_main_path(dev, "zamba2-1.2b", 14)]
+    ab = dispatch_ab(dev)
     dense, int4 = "qwen2.5-7b batch-1 bf16", "qwen2.5-7b batch-1 int4"
     paged = ("qwen2.5-7b paged bf16 KV", "qwen2.5-7b paged int8 KV")
     mamba, zamba = "mamba2-2.7b batch-1", "zamba2-1.2b batch-1"
@@ -1544,6 +1778,7 @@ def main(argv=None) -> int:
         row["launches_by_path"] = counts
         log(f"  {row['name']} launches per main path: {counts}")
     log(json.dumps({"pending_kernels": PENDING}))
+    log(json.dumps({"dispatch_ab": ab}))
     log(smi.splitlines()[0])
     print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {

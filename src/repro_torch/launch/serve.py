@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import floor as fl
+from repro_torch.core.dispatch import MODES
 from repro_torch.core.hardware import GPU_H100
 from repro_torch.models.attention import DECODE_BACKENDS
 from repro_torch.models.model import ATTENTION_FAMILIES, Model
@@ -68,10 +69,11 @@ def main(argv=None):
                          "lengths through --slots cache slots")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--sessions", type=int, default=8)
-    ap.add_argument("--dispatch", default="full_jit", choices=["full_jit"],
-                    help="decode dispatch: the whole step as one captured "
-                         "CUDA graph (eager / per-stage arrive with the "
-                         "dispatch A/B slice)")
+    ap.add_argument("--dispatch", default="full_jit", choices=list(MODES),
+                    help="continuous-batching decode dispatch: full_jit = "
+                         "the whole step as one captured CUDA graph; "
+                         "stage_jit = one graph per layer; eager = per-op "
+                         "launches (the dispatch A/B arms)")
     ap.add_argument("--steps-per-tick", type=int, default=1,
                     help="horizon K: K decode steps with on-device sampling "
                          "per dispatch, one token transfer per macro-tick")
@@ -114,6 +116,9 @@ def main(argv=None):
         ap.error(f"--continuous, --paged, --prefix-cache and --kv-quant serve "
                  f"the attention families; {args.arch} is {cfg.family!r} "
                  "(batch-1 streamed or fused decode only)")
+    if args.dispatch != "full_jit" and (args.paged or args.steps_per_tick > 1):
+        ap.error(f"--dispatch {args.dispatch}: --paged serving and horizon-K "
+                 "ticks (--steps-per-tick > 1) run the full_jit arm only")
     model = Model(cfg, decode_backend=args.decode_backend, device=args.device)
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init(gen)
@@ -241,9 +246,12 @@ def serve_continuous(engine: DecodeEngine, cfg, args):
         print(f"quantised serving: weights={args.quant} "
               f"kv={args.kv_quant}; per-step weight stream "
               f"{wb / 1024:.1f} KiB")
-    captured = (f"captured as {res.step_cache_size} CUDA graph(s)"
-                if res.step_cache_size is not None else
-                "run as plain calls (no graph capture on the CPU)")
+    if args.dispatch != "full_jit":
+        captured = f"run by the {args.dispatch} executor"
+    elif res.step_cache_size is not None:
+        captured = f"captured as {res.step_cache_size} CUDA graph(s)"
+    else:
+        captured = "run as plain calls (no graph capture on the CPU)"
     print(f"decode step {captured}, {res.launches_per_step} host launch(es) "
           f"per step")
     if args.timed:

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.dispatch import StepProgram
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.common import (apply_norm, apply_rope, embed_init,
@@ -576,6 +577,60 @@ class Model:
             tok = nxt[:, None]
         return torch.stack(toks, dim=1), cache
 
-    def step_program(self, *args, **kwargs):
-        raise NotImplementedError("step_program arrives with the dispatch A/B "
-                                  "slice (eager / per-stage / CUDA-Graph step)")
+    # ------------------------------------------------------------------
+    # dispatch A/B decomposition (paper §5)
+    # ------------------------------------------------------------------
+    def step_program(self, params: Params, cache: Cache) -> StepProgram:
+        """Decompose ``decode_step`` into [embed] + [block_i]* + [head]
+        stages over a state dict, for the eager / stage_jit / full_jit
+        A/B.  Attention families only (the A/B targets the paper's
+        models), on contiguous and slotted caches.
+
+        The stages run ``decode_step``'s kernels in its order: the embed
+        stage also computes the step's mask, write slot (``pos % kv_len``
+        once a sliding-window ring wraps) and RoPE angles once, carried
+        in the state as ``mask``, ``write_pos`` and ``angles``; each
+        block writes its K/V row (and int8 scales) in place; the head
+        advances ``pos`` in place and adds ``logits``.  So the A/B
+        touches the launch term and only the launch term."""
+        cfg = self.cfg
+        if cfg.family not in ATTENTION_FAMILIES:
+            raise NotImplementedError(
+                f"step_program decomposes the attention families' step, got "
+                f"{cfg.family!r}; the engine captures the whole step")
+        if cache is not None and "block_table" in cache:
+            raise NotImplementedError(
+                "step_program does not decompose the paged decode step; "
+                "paged serving runs the full_jit arm only")
+
+        def embed_stage(state):
+            x = self.embed_tokens(params, state["tokens"])
+            pos = state["cache"]["pos"]
+            kv_len = state["cache"]["k"].shape[2]
+            ring = bool(cfg.sliding_window) and kv_len <= cfg.sliding_window
+            positions = (pos[:, None] if pos.dim() == 1
+                         else pos.reshape(1, 1).expand(x.shape[0], 1))
+            return dict(state, x=x, write_pos=pos % kv_len if ring else pos,
+                        mask=attn.decode_mask(pos, kv_len, ring=ring),
+                        angles=self.angle_fn(positions))
+
+        def make_block_stage(i):
+            bp = params["blocks"][i]
+
+            def stage(state):
+                c = state["cache"]
+                scales = ((c["k_scale"][i], c["v_scale"][i]) if "k_scale" in c
+                          else (None, None))
+                x = self._attn_block_decode(bp, state["x"], c["k"][i], c["v"][i],
+                                            state["write_pos"], state["mask"],
+                                            state["angles"], *scales)
+                return dict(state, x=x)
+            return stage
+
+        def head_stage(state):
+            logits, _ = self._decode_head(params, state["cache"], state["x"], None)
+            return dict(state, logits=logits)
+
+        stages = [embed_stage] + [make_block_stage(i) for i in range(cfg.n_layers)] \
+            + [head_stage]
+        return StepProgram(stages)

@@ -8,7 +8,8 @@ their ``path``:
   fused   — 2-D int4 weights go through the int4 kernel
             (kernels/int4_matmul: the card launches it, a CPU tensor
             takes its plain version); other fused weights multiply a
-            bf16 dequantisation, as the reference does off its TPU.
+            bf16 dequantisation, as the reference does off its TPU, and
+            are charged its bytes (``QuantizedTensor.int4_kernel``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QuantizedTensor):
         if w.path == "dequant":
             return x @ dequantize(w, x.dtype)
-        if w.bits == 4 and w.ndim == 2:
+        if w.int4_kernel:
             from repro_torch.kernels.int4_matmul import ops as int4_ops
             lead = x.shape[:-1]
             x2 = x.reshape(-1, x.shape[-1]).contiguous()

@@ -10,8 +10,12 @@ The ``path`` attached to a quantised tensor selects how ``quant.paths``
 multiplies by it:
 
   dequant — materialise the bf16 weight, then matmul (traffic >= W_bf16)
-  fused   — the int4 kernel reads the packed codes and scales and never
-            writes a bf16 weight (traffic ~= W/4 + scales)
+  fused   — 2-D int4 weights: the int4 kernel reads the packed codes and
+            scales and never writes a bf16 weight (traffic ~= W/4 +
+            scales); other fused weights (int8) are multiplied by a bf16
+            dequantisation, which eager torch writes and reads back, and
+            are charged as dequant (the reference charges them as fused,
+            counting on XLA to fuse the cast into the matmul)
 """
 from __future__ import annotations
 
@@ -57,14 +61,23 @@ class QuantizedTensor:
         return len(self.shape)
 
     @property
+    def int4_kernel(self) -> bool:
+        """Whether ``quant.paths.matmul`` multiplies by this weight through
+        the int4 kernel, which reads codes and scales and writes no bf16
+        copy.  Every other quantised weight is multiplied by a
+        dequantised copy, on the ``fused`` path too (int8, or int4 that
+        is not 2-D)."""
+        return self.path == "fused" and self.bits == 4 and self.ndim == 2
+
+    @property
     def nbytes_streamed(self) -> float:
         """Analytic HBM bytes streamed per use (floor-model numerator)."""
         d = self.data.numel() * self.data.element_size()
         s = self.scales.numel() * self.scales.element_size()
-        if self.path == "dequant":
-            # write + read back the materialised bf16 copy
-            return d + s + 2 * math.prod(self.shape) * 2
-        return d + s
+        if self.int4_kernel:
+            return d + s
+        # write + read back the materialised bf16 copy
+        return d + s + 2 * math.prod(self.shape) * 2
 
 
 def quantize(w: torch.Tensor, bits: int, group: int = DEFAULT_GROUP,

@@ -1,15 +1,34 @@
 """Batch-1 / batched streaming decode engine — the paper's workload.
 
-Port of ``repro.serving.engine``.  Generation runs one of two loops:
+Port of ``repro.serving.engine``.  As in the reference, the decode step
+is one program: on the card the engine captures ``Model.decode_step`` as
+one CUDA graph (the paper's own conclusion, and the ``full_jit`` arm of
+``core/dispatch.py``) and replays it per token.  Generation runs one of
+two loops:
 
-  step-streamed — one host call of ``Model.decode_step`` per token (what a
-                  Python serving loop does; pays the launch tax once per
-                  token)
-  fused-loop    — ``Model.decode_steps`` over all N tokens with sampling
-                  on the device, the tokens read back once at the end
+  step-streamed — one graph replay per token, sampling after it on the
+                  host's side of the graph (what a Python serving loop
+                  does; pays one launch per token)
+  fused-loop    — ``Model.decode_steps`` over all N tokens with greedy
+                  sampling on the device, captured as one graph, the
+                  tokens read back once at the end
 
 and ``generate_continuous`` serves many sessions through the
-continuous-batching scheduler (serving/scheduler.py).
+continuous-batching scheduler (serving/scheduler.py).  For the dispatch
+A/B, ``step_program`` opens the same step up to the ``eager`` and
+``stage_jit`` executors.
+
+Graphs are captured once per (batch, max_len, KV dtype, loop, horizon),
+as ``jax.jit`` keeps one executable per shape, each by a ``full_jit``
+executor of ``core/dispatch.py``: the generation loops prefill
+into one preallocated cache per (batch, max_len, KV dtype), in place
+(rows past ``pos`` are masked; ssm state and conv windows are
+overwritten).  The executor runs the first step of each shape eagerly
+on a side stream (a real step, which makes the kernels' first-call
+allocations outside capture) and captures the graph right after it;
+capture runs nothing.  Prefill stays per op: its shapes change with every prompt
+length, and a 2048-token prefill keeps the card busy on its own.  On the
+CPU nothing is captured and every call is plain.
 
 Everything runs under ``torch.inference_mode()``; tokens stay on the
 device between steps.
@@ -23,6 +42,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.dispatch import StepProgram
 from repro_torch.models.model import Model
 from repro_torch.quant import quantize_tree
 from repro_torch.serving.sampling import sample
@@ -46,6 +66,8 @@ class DecodeEngine:
                            if quant_path != "bf16" else params)
         self.quant_path = quant_path
         self.kv_dtype = kv_dtype      # torch.int8: int8 KV codes + scales
+        self._caches: Dict[tuple, dict] = {}    # (B, max_len, kv_dtype) -> cache
+        self._executors: Dict[tuple, object] = {}   # cache key + (loop, horizon)
 
     # -------------------------------------------------------------- API
     def _sync(self) -> None:
@@ -57,24 +79,61 @@ class DecodeEngine:
 
     @torch.inference_mode()
     def prefill(self, batch: Dict, max_len: int):
+        """Prefill into a new cache; returns (last-position logits, cache)."""
         B = next(iter(batch.values())).shape[0]
         cache = self.new_cache(B, max_len)
         return self.model.prefill(self.params, batch, cache)
+
+    def _prefill_reused(self, batch: Dict, max_len: int):
+        """Prefill into this shape's own cache, in place, so that the
+        shape's graphs find it at the addresses they were captured at.
+        Returns (logits, cache key)."""
+        B = next(iter(batch.values())).shape[0]
+        key = (B, max_len, self.kv_dtype)
+        if key not in self._caches:
+            self._caches[key] = self.new_cache(B, max_len)
+        logits, _ = self.model.prefill(self.params, batch, self._caches[key])
+        return logits, key
+
+    def decode_stage(self, state: Dict) -> Dict:
+        """One decode step over ``state["cache"]``: {"logits"}."""
+        return {"logits": self.model.decode_step(self.params, state["cache"],
+                                                 state["tokens"])[0]}
+
+    def _steps_stage(self, state: Dict) -> Dict:
+        """``state["horizon"]`` steps with sampling on the device: {"out"},
+        the (B, horizon) tokens."""
+        return {"out": self.model.decode_steps(
+            self.params, state["cache"], state["tokens"], state["gen"],
+            horizon=state["horizon"], temperature=state["temperature"],
+            top_k=state["top_k"])[0]}
+
+    def _run(self, key, stage, state: Dict) -> Dict:
+        """``stage(state)`` through the ``full_jit`` executor of ``key``:
+        on the card its graph is captured at the key's first call and
+        replayed after; plain calls off the card."""
+        run = self._executors.get(key)
+        if run is None:
+            run = self._executors[key] = StepProgram([stage]).executor("full_jit")
+        return run(state)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     @torch.inference_mode()
+    # staticcheck: hotpath
     def generate_streamed(self, batch: Dict, *, max_len: int, n_new: int,
                           temperature: float = 0.0, top_k: int = 0,
                           seed: int = 0, timed: bool = False) -> GenerationResult:
-        """One host call per token (the paper's streaming workload).
+        """One step per token (the paper's streaming workload): one graph
+        replay on the card, then sampling.
 
         The generation wall is always timed (``tokens_per_s`` is real
         whether or not per-step instrumentation is on); ``timed=True``
         additionally synchronises after every step to record per-step
         walls for percentile reporting."""
-        logits, cache = self.prefill(batch, max_len)
+        logits, key = self._prefill_reused(batch, max_len)
+        cache = self._caches[key]
         gen = self._generator(seed)
         out, times = [], []
         tok = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
@@ -83,7 +142,8 @@ class DecodeEngine:
         t_gen = time.perf_counter()
         for _ in range(n_new - 1):
             t0 = time.perf_counter()
-            logits, cache = self.model.decode_step(self.params, cache, tok[:, None])
+            logits = self._run(key + ("step",), self.decode_stage,
+                               {"tokens": tok[:, None], "cache": cache})["logits"]
             tok = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
             if timed:
                 self._sync()
@@ -100,15 +160,23 @@ class DecodeEngine:
                        seed: int = 0, temperature: float = 0.0,
                        top_k: int = 0) -> GenerationResult:
         """N tokens through ``Model.decode_steps``: sampling on the device
-        and one read-back of the token matrix at the end."""
-        logits, cache = self.prefill(batch, max_len)
+        and one read-back of the token matrix at the end; on the card the
+        N-1 steps are one graph replay (greedy only: a draw inside a
+        captured graph is not ported)."""
+        if self.device.type == "cuda" and temperature > 0.0:
+            raise NotImplementedError(
+                "stochastic sampling inside the captured fused graph is not "
+                "ported; use generate_streamed or greedy decoding on the card")
+        logits, key = self._prefill_reused(batch, max_len)
+        cache = self._caches[key]
         gen = self._generator(seed)
         tok0 = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
+        horizon = n_new - 1
+        state = {"tokens": tok0[:, None], "cache": cache, "gen": gen,
+                 "horizon": horizon, "temperature": temperature, "top_k": top_k}
         self._sync()
         t0 = time.perf_counter()
-        toks, _ = self.model.decode_steps(self.params, cache, tok0[:, None], gen,
-                                          horizon=n_new - 1,
-                                          temperature=temperature, top_k=top_k)
+        toks = self._run(key + ("steps", horizon), self._steps_stage, state)["out"]
         self._sync()
         dt = time.perf_counter() - t0
         tokens = torch.cat([tok0[:, None], toks], dim=1)
@@ -153,3 +221,7 @@ class DecodeEngine:
         for req in sessions:
             sched.submit(req)
         return sched.run()
+
+    # ------------------------------------------------- dispatch A/B hooks
+    def step_program(self, cache) -> StepProgram:
+        return self.model.step_program(self.params, cache)

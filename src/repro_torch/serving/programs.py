@@ -10,12 +10,11 @@ the cache, block table and positions at their fixed addresses, which the
 scheduler updates in place.  On a CPU model every program is a plain
 call.
 
-A replay launches the kernels its capture recorded without calling their
-wrappers, so the wrappers' ``launches`` counters see the capture only.
-``captured_launches`` and ``replay_launches`` keep the other two terms,
-by kernel name: what the captures recorded (counted by the wrappers but
-not launched) and what the replays launched.  The kernels launched on
-the card are ``launches - captured_launches + replay_launches``.
+The capture helpers and the launch tallies (``captured_launches``,
+``replay_launches``) are ``core/dispatch.py``'s, shared with the engine
+and the dispatch A/B executors.  Under the ``eager`` and ``stage_jit``
+arms the scheduler runs its ``StepProgram`` executor instead of ``step``,
+as the reference leaves ``step`` unbuilt under them.
 """
 from __future__ import annotations
 
@@ -23,30 +22,9 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import launch_counts
+from repro_torch.core.dispatch import (_Captured, capture, captured_launches,  # noqa: F401
+                                       replay_launches, warm_up)
 from repro_torch.models.model import Model
-
-captured_launches: Dict[str, int] = {}
-replay_launches: Dict[str, int] = {}
-
-
-def _tally(counter: Dict[str, int], launches: Dict[str, int]) -> None:
-    for name, n in launches.items():
-        counter[name] = counter.get(name, 0) + n
-
-
-class _Captured:
-    """One captured decode program: its graph, static inputs, output and
-    the kernel launches (by kernel name) that one replay makes."""
-
-    def __init__(self, graph, inputs: Dict[str, torch.Tensor], output,
-                 launches: Dict[str, int]):
-        self.graph, self.inputs, self.output = graph, inputs, output
-        self.launches = launches
-
-    def replay(self) -> None:
-        self.graph.replay()
-        _tally(replay_launches, self.launches)
 
 
 class SchedulerPrograms:
@@ -57,13 +35,8 @@ class SchedulerPrograms:
     (token matrix, cache); on the card the returned tensor is the
     graph's static output, overwritten by the next replay."""
 
-    def __init__(self, model: Model, *, paged: bool, dispatch_mode: str,
-                 steps_per_tick: int, temperature: float):
-        if dispatch_mode != "full_jit":
-            raise NotImplementedError(
-                f"dispatch_mode {dispatch_mode!r} arrives with the dispatch "
-                "A/B slice, which ports Model.step_program; the scheduler "
-                "runs the full_jit arm (one captured graph per step)")
+    def __init__(self, model: Model, *, paged: bool, steps_per_tick: int,
+                 temperature: float):
         self.model = model
         self.capture = model.device.type == "cuda"
         if self.capture and steps_per_tick > 1 and temperature > 0.0:
@@ -81,19 +54,8 @@ class SchedulerPrograms:
         (state-preserving: no position moves, writes go to the garbage
         page or rewrite the old row), then capture ``run`` on the static
         ``inputs``.  Capture records the launches without running them."""
-        side = torch.cuda.Stream(self.model.device)
-        side.wait_stream(torch.cuda.current_stream(self.model.device))
-        with torch.cuda.stream(side):
-            warm()
-        torch.cuda.current_stream(self.model.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        with torch.cuda.graph(graph):
-            output = run()
-        launches = {name: n - before[name] for name, n in launch_counts().items()
-                    if n != before[name]}
-        _tally(captured_launches, launches)
-        self._graphs[key] = _Captured(graph, inputs, output, launches)
+        warm_up(warm, self.model.device)
+        self._graphs[key] = capture(run, inputs)
         return self._graphs[key]
 
     def step(self, params, cache, tokens: torch.Tensor):

@@ -8,7 +8,9 @@ constant slot count, so session churn never changes a program's shapes:
 on the card the step is one captured CUDA graph per (route, K)
 (serving/programs.py) and every host-side change — admission, eviction,
 page grants, positions — lands in place in the tensors that graph reads
-(``PageStore.sync``).  Prefill, the page copy and the cache are written
+(``PageStore.sync``).  For the dispatch A/B, ``dispatch_mode`` "eager"
+or "stage_jit" runs the K=1 step through the model's ``StepProgram``
+executor instead (contiguous slots only, as in the reference).  Prefill, the page copy and the cache are written
 in place, and each program returns the same cache dict.
 
 Sampling draws from a ``torch.Generator`` seeded with ``seed``; greedy
@@ -26,6 +28,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.dispatch import MODES, launch_count
 from repro_torch.models.model import Model
 from repro_torch.serving.memory import BlockAllocator, PageStore, PrefixCache
 from repro_torch.serving.programs import SchedulerPrograms
@@ -58,9 +61,15 @@ class SlotScheduler(VirtualClockMixin):
         if n_slots < 1 or steps_per_tick < 1:
             raise ValueError(f"bad n_slots={n_slots} / steps_per_tick="
                              f"{steps_per_tick}")
+        if dispatch_mode not in MODES:
+            raise ValueError(f"dispatch_mode must be one of {MODES}, got "
+                             f"{dispatch_mode!r}")
         if adaptive_k and steps_per_tick < 2:
             raise NotImplementedError(
                 "adaptive_k needs a horizon ceiling >= 2 to adapt below")
+        if steps_per_tick > 1 and dispatch_mode != "full_jit":
+            raise NotImplementedError(
+                "horizon-K fused ticks ARE the one-program (full_jit) arm")
         self.model = model
         self.params = params
         self.n_slots = n_slots
@@ -91,13 +100,16 @@ class SlotScheduler(VirtualClockMixin):
         self.horizon_hist: collections.Counter = collections.Counter()
 
         self._progs = SchedulerPrograms(
-            model, paged=paged, dispatch_mode=dispatch_mode,
-            steps_per_tick=steps_per_tick, temperature=temperature)
+            model, paged=paged, steps_per_tick=steps_per_tick,
+            temperature=temperature)
         self.paged = paged
         if prefix_cache and not paged:
             raise NotImplementedError(
                 "prefix sharing rides the paged block table")
         if paged:
+            if dispatch_mode != "full_jit":
+                raise NotImplementedError(
+                    "paged serving runs the full_jit arm only")
             if prefill_chunk is not None and (
                     prefill_chunk < page_size or prefill_chunk % page_size):
                 raise ValueError("prefill_chunk must be a multiple of "
@@ -133,6 +145,12 @@ class SlotScheduler(VirtualClockMixin):
         self.prefix_tokens_saved = 0
         self.cow_copies = 0
         self._admission_order = 0   # monotone admission id (preempt prio)
+        if dispatch_mode == "full_jit":
+            self._program = self._executor = None
+        else:
+            # dispatch A/B: the StepProgram decomposition's executors
+            self._program = model.step_program(params, self.cache)
+            self._executor = self._program.executor(dispatch_mode)
 
     # ------------------------------------------------------------- intro
     @property
@@ -171,6 +189,8 @@ class SlotScheduler(VirtualClockMixin):
 
     @property
     def launches_per_step(self) -> int:
+        if self._program is not None:
+            return launch_count(self._program, self.dispatch_mode)
         return 1  # full_jit: one graph replay per decode dispatch
 
     # ------------------------------------------------------------- queue
@@ -564,8 +584,7 @@ class SlotScheduler(VirtualClockMixin):
                 -(-(sess.pos + 1) // self.page_size)
                 for _, sess in active))
         t0 = time.perf_counter()
-        logits, self.cache = self._progs.step(self.params, self.cache,
-                                              torch.from_numpy(toks))
+        logits, self.cache = self._run_step(torch.from_numpy(toks))
         nxt = self._sample(logits[:, -1])
         t1 = time.perf_counter()
         # staticcheck: disable=hot-sync -- the ONE deliberate per-tick sync: sampled tokens must reach the host to be emitted
@@ -588,6 +607,13 @@ class SlotScheduler(VirtualClockMixin):
             self.events.append(("token", sess.sid, slot, tok))
             if sess.done or self._hit_eos(tok):
                 self._finish(slot, sess)
+
+    def _run_step(self, tokens: torch.Tensor):  # staticcheck: hotpath
+        if self._executor is None:
+            return self._progs.step(self.params, self.cache, tokens)
+        state = self._executor({"tokens": tokens.to(self.model.device),
+                                "cache": self.cache})
+        return state["logits"], state["cache"]
 
     def _decode_tick_horizon(self, K: int) -> None:  # staticcheck: hotpath
         """Horizon-K fused decode: ONE program advances every live slot

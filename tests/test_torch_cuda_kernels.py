@@ -697,3 +697,137 @@ def test_ssm_decode_step_replays_as_a_cuda_graph(cuda):
     assert torch.equal(cache["conv"], eager_cache["conv"])
     assert ssd_ops.launches == before[0] + cfg.n_layers
     assert rms_ops.launches == before[1] + 2 * cfg.n_layers + 1
+
+
+# ---------------------------------------------------------------- dispatch A/B
+def _ab_engine(cuda, quant, name="qwen2.5-3b"):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine
+    cfg = get_config(name).reduced()
+    model = Model(cfg, decode_backend="cuda", device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    return DecodeEngine(model, params, quant_path=quant)
+
+
+def _ab_prompt(eng, cuda, n=12):
+    return {"tokens": torch.arange(n, device=cuda)[None] * 7 % eng.cfg.vocab_size}
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int4_fused"])
+def test_graph_arms_replay_equal_eager(cuda, quant):
+    """The stage_jit and full_jit executors (one graph per stage, one for
+    the step) replayed over 8 steps equal the eager executor: logits,
+    cache rows and positions bit for bit, since a replay runs the same
+    kernels on the same inputs; the replays launch kernel 1 once per
+    layer and step (``launches - captured_launches + replay_launches``)."""
+    from repro_torch.core import dispatch
+    eng = _ab_engine(cuda, quant)
+    feed = [(5 * i + 3) % eng.cfg.vocab_size for i in range(8)]
+    runs = {}
+    with torch.inference_mode():
+        for mode in dispatch.MODES:
+            _, cache = eng.prefill(_ab_prompt(eng, cuda), 32)
+            run = eng.step_program(cache).executor(mode)
+            tok = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+            before = (da_ops.launches, dict(dispatch.captured_launches),
+                      dict(dispatch.replay_launches))
+            logits = []
+            for t in feed:
+                tok.fill_(t)
+                logits.append(run({"tokens": tok, "cache": cache})["logits"].clone())
+            torch.cuda.synchronize()
+            launched = (da_ops.launches - before[0]
+                        - (dispatch.captured_launches.get("decode_attention", 0)
+                           - before[1].get("decode_attention", 0))
+                        + (dispatch.replay_launches.get("decode_attention", 0)
+                           - before[2].get("decode_attention", 0)))
+            assert launched == eng.cfg.n_layers * len(feed), mode
+            runs[mode] = (logits, cache)
+    want_logits, want_cache = runs["eager"]
+    assert int(want_cache["pos"]) == 12 + len(feed)
+    for mode in ("stage_jit", "full_jit"):
+        logits, cache = runs[mode]
+        for i, (got, want) in enumerate(zip(logits, want_logits)):
+            assert torch.equal(got, want), f"{mode} step {i}"
+        for key in want_cache:
+            assert torch.equal(cache[key], want_cache[key]), f"{mode} {key}"
+
+
+def test_graph_executor_refuses_another_cache(cuda):
+    eng = _ab_engine(cuda, "bf16")
+    tok = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        _, cache = eng.prefill(_ab_prompt(eng, cuda), 32)
+        _, other = eng.prefill(_ab_prompt(eng, cuda), 32)
+        for mode in ("stage_jit", "full_jit"):
+            run = eng.step_program(cache).executor(mode)
+            run({"tokens": tok, "cache": cache})
+            run({"tokens": tok, "cache": cache})
+            with pytest.raises(ValueError, match="another cache"):
+                run({"tokens": tok, "cache": other})
+            with pytest.raises(ValueError, match="token shape"):
+                run({"tokens": tok.expand(2, 1), "cache": cache})
+
+
+def _plain_greedy(eng, batch, max_len, n_new):
+    with torch.inference_mode():
+        logits, cache = eng.prefill(batch, max_len)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        out = [tok]
+        for _ in range(n_new - 1):
+            logits, _ = eng.model.decode_step(eng.params, cache, tok[:, None])
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            out.append(tok)
+    return torch.stack(out, dim=1)
+
+
+@pytest.mark.parametrize("name,quant", [("qwen2.5-3b", "bf16"),
+                                        ("qwen2.5-3b", "int4_fused"),
+                                        ("mamba2-2.7b", "bf16")])
+def test_engine_graph_tokens_equal_plain_calls(cuda, name, quant):
+    """The engine's captured step (streamed: one replay per token; fused:
+    one replay of the whole horizon) gives the tokens of plain
+    ``decode_step`` calls, for two requests of one shape (the second
+    replays the first's graphs over the reused cache); the replays
+    launch the kernels per step as the plain calls do."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import launch_counts
+    eng = _ab_engine(cuda, quant, name)
+    n_new = 10
+    batch = _ab_prompt(eng, cuda, 16)
+    want = _plain_greedy(eng, batch, 40, n_new)
+    for _ in range(2):
+        assert torch.equal(eng.generate_streamed(batch, max_len=40, n_new=n_new).tokens,
+                           want)
+        assert torch.equal(eng.generate_fused(batch, max_len=40, n_new=n_new).tokens,
+                           want)
+    assert len(eng._executors) == 2 and len(eng._caches) == 1
+    before = (launch_counts(), dict(dispatch.replay_launches))
+    eng.generate_streamed(batch, max_len=40, n_new=n_new)
+    eng.generate_fused(batch, max_len=40, n_new=n_new)
+    steps = 2 * (n_new - 1)
+    per_step = ({"ssd_update": eng.cfg.n_layers} if eng.cfg.family == "ssm"
+                else {"decode_attention": eng.cfg.n_layers})
+    per_step["rmsnorm"] = 2 * eng.cfg.n_layers + 1
+    for kernel, n in per_step.items():
+        assert (dispatch.replay_launches.get(kernel, 0)
+                - before[1].get(kernel, 0)) == n * steps, kernel
+    # the wrappers ran only for the two prefills (their norms)
+    assert launch_counts()["rmsnorm"] - before[0]["rmsnorm"] == 2 * per_step["rmsnorm"]
+    with pytest.raises(NotImplementedError, match="stochastic"):
+        eng.generate_fused(batch, max_len=40, n_new=n_new, temperature=0.8)
+
+
+def test_engine_loops_keep_their_own_graphs_at_one_horizon(cuda):
+    """At n_new=2 the fused loop's horizon is 1, one step like the
+    streamed loop's: each loop still captures and replays its own graph
+    (logits for the one, tokens for the other) over the shared cache."""
+    eng = _ab_engine(cuda, "bf16")
+    batch = _ab_prompt(eng, cuda, 16)
+    want = _plain_greedy(eng, batch, 40, 2)
+    for _ in range(2):
+        for loop in (eng.generate_streamed, eng.generate_fused):
+            got = loop(batch, max_len=40, n_new=2).tokens
+            assert got.shape == (1, 2) and torch.equal(got, want), loop.__name__
+    assert len(eng._executors) == 2 and len(eng._caches) == 1

@@ -49,7 +49,11 @@ def test_quantize_bit_equal_to_jax(bits, K, N, group):
     np.testing.assert_array_equal(qt.data.numpy(), np.asarray(qj.data))
     np.testing.assert_array_equal(qt.scales.numpy(), np.asarray(qj.scales))
     assert (qt.k, qt.n, qt.group, qt.shape) == (qj.k, qj.n, qj.group, qj.shape)
-    assert qt.nbytes_streamed == qj.nbytes_streamed
+    # int4 reaches the kernel and is charged as the reference charges it;
+    # the port's int8 fused route multiplies a written bf16 copy, and is
+    # charged that copy's write and read on top
+    copy = 0 if bits == 4 else 2 * K * N * 2
+    assert qt.nbytes_streamed == qj.nbytes_streamed + copy
 
 
 def test_quantize_stacked_and_unpack():

@@ -28,7 +28,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         ROOT / "chip_smoke.py", ROOT / "scripts" / "int4_gemv_probe.py",
         ROOT / "scripts" / "paged_attention_probe.py",
         ROOT / "scripts" / "decode_attention_probe.py",
-        ROOT / "scripts" / "ssd_rmsnorm_probe.py"]
+        ROOT / "scripts" / "ssd_rmsnorm_probe.py",
+        ROOT / "scripts" / "dispatch_ab_probe.py"]
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]

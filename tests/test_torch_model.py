@@ -189,11 +189,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="fault-injection"):
         SlotScheduler(model, None, n_slots=2, max_len=16,
                       fault_injector=object())
-    with pytest.raises(NotImplementedError, match="dispatch A/B"):
-        SlotScheduler(model, None, n_slots=2, max_len=16,
-                      dispatch_mode="stage_jit")
-    with pytest.raises(NotImplementedError, match="dispatch"):
-        model.step_program(None, None)
     with pytest.raises(NotImplementedError, match="family"):
         Model(get_config("qwen2-moe-a2.7b").reduced(), device=CPU)
 
