@@ -75,6 +75,19 @@ Phases, in order; each raises on failure and nothing catches:
     with 4, f32, weights drawn once on the CPU and copied to the card;
     16 greedy tokens must be identical and the first-step logits agree
     within 1e-4 x max|logit|.
+9b. the host KV tier inside the real path: a qwen2.5-7b-width model
+    with 2 layers in f32 serves 6 sessions through 2 paged slots
+    (chunked prefill) at full backing and on a pool cut to 13 pages:
+    without a tier (re-prefill), and with ``kv_tier="host"`` under
+    prefer-device, spill and lookahead, plus int8 KV at K=4 with spill
+    against its own full-backing run; every greedy stream equals the
+    full-backing run's, spill and lookahead spill and restore pages, and
+    both pools balance after ``flush_prefix_cache()`` and ``flush_host()``.
+    Then a seeded fault plan over every fault kind (what ``serve
+    --fault-plan mixed`` builds) through the spill arm with retry budget
+    2 and the self-audit: sessions that end ok keep their streams, the
+    others a prefix of it, every token lies in the vocabulary, the pools
+    balance; the counters the plan fired are logged.
 10. the batch-1 main path at full width: qwen2.5-7b, 28 layers, bf16,
     random weights drawn on the card; ``DecodeEngine`` serves the step
     as one captured CUDA graph: one warm-up request of each loop at the
@@ -135,13 +148,37 @@ Phases, in order; each raises on failure and nothing catches:
     the last one's end, and the in-step device us per call of kernels 1
     and 5.
     Its numbers go on a ``{"dispatch_ab": ...}`` line.
-16. the kernels line: one JSON object with every ported kernel's
+16. the host-DRAM KV tier at full width: qwen2.5-7b, 28 layers, bf16,
+    the 8 sessions of phase 12 through 4 paged slots on a pool of 340
+    pages (about 2.5 sessions), ``kv_tier="host"``: first the control arm
+    (prefer-device: nothing parks, preempted sessions re-prefill; bf16
+    KV, K=1), then the spill policy with bf16 KV at K=1 and int8 KV at
+    K=4: every session ends with
+    its budget; at least 3 parks and 3 parked restores; the first
+    restored session's pages ``torch.equal`` to a device copy of them
+    taken at park; kernels 2 and 5 counted in the captured step as in
+    phase 12; p50 per token, tok/s and the device's busy share (a
+    profiled rerun); each park's and restore's device ms (CUDA events),
+    the checksums' host ms and the virtual charge beside them; both pools
+    balance.  Then ``save_kv_blobs`` / ``restore_kv_blobs`` of 128 pages
+    (one 2048-token session, 117,440,512 B) through a page-locked host
+    pool, CUDA-event medians of 10, in GB/s against the PCIe link's bound
+    (``nvidia-smi`` pcie.link.gen.max / width.max, where it reports one)
+    and beside one contiguous pinned copy of the same bytes each way and
+    phase 10's prefill wall; the fault plan of phase 9b at full width (accounting:
+    statuses, tokens in the vocabulary, pools balance); a seeded poisson
+    trace replayed through the tiered scheduler with priority preemption
+    on and off, with ``slo_report``'s TTFT and per-token p50/p95/p99 and
+    goodput under the SLO.  Its numbers go on a ``{"host_tier": ...}``
+    line.
+17. the kernels line: one JSON object with every ported kernel's
     numbers (all five: no TPU kernel is left to port; ``device_us`` and
     ``b2b_us`` for kernels 4 and 5, null for the others); ``launches`` sums
     the main paths that run the kernel and ``launches_by_path`` names
-    each path's count; the int4 row adds the M=2048 sums (``prefill_*``)
-    and the prefill's launches and walls.
-17. last line: ``{"ok": true, "device": {...}}``.
+    each path's count (the tiered cells of phase 16 included); the int4
+    row adds the M=2048 sums (``prefill_*``) and the prefill's launches
+    and walls.
+18. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only kernels
 
@@ -1709,6 +1746,485 @@ def dispatch_ab(dev):
     return out
 
 
+# ---------------------------------------------------------------- phases 9b, 16
+TIER_POLICIES = ("prefer-device", "spill", "lookahead")
+STATUSES = ("ok", "aborted", "failed", "expired")
+
+
+def serve_sched(model, params, reqs, **kw):
+    """A ``SlotScheduler`` over ``reqs``, run to the end: (scheduler,
+    result)."""
+    from repro_torch.serving import SlotScheduler
+    sched = SlotScheduler(model, params, **kw)
+    for r in reqs:
+        sched.submit(r)
+    return sched, sched.run()
+
+
+def streams_of(res):
+    return {sid: s.tokens.tolist() for sid, s in res.sessions.items()}
+
+
+def check_balanced(sched, label):
+    """Both pools balance once the prefix cache and the host prefix index
+    are flushed: every device page free, no host blob left."""
+    sched.flush_prefix_cache()
+    sched.store.flush_host()
+    free, host = sched.store.allocator.n_free, sched.store.host_used
+    if free != sched.store.n_pages - 1 or host or sched._pressure_holds:
+        raise AssertionError(f"{label}: pools do not balance ({free} of "
+                             f"{sched.store.n_pages - 1} device pages free, "
+                             f"{host} host blobs left)")
+
+
+def check_recovered(res, vocab, label, baseline=None):
+    """Accounting after a fault plan: every session has a terminal
+    status, every token lies in the vocabulary (no token from a
+    non-finite logit was emitted) and, given ``baseline``, every session
+    that ended ok kept its stream and every other one a prefix of it."""
+    for sid, s in res.sessions.items():
+        toks = s.tokens.tolist()
+        if s.status not in STATUSES:
+            raise AssertionError(f"{label}: {sid} has status {s.status!r}")
+        if any(not 0 <= t < vocab for t in toks):
+            raise AssertionError(f"{label}: {sid} emitted a token outside "
+                                 "the vocabulary")
+        if baseline is not None:
+            want = baseline[sid] if s.status == "ok" else baseline[sid][:len(toks)]
+            if toks != want:
+                raise AssertionError(f"{label}: {sid} ({s.status}) left the "
+                                     "baseline stream")
+
+
+def fault_plan_for(reqs):
+    """What ``serve --fault-plan mixed`` builds for requests that all
+    arrive at 0: 12 faults over every kind in 0.25 virtual seconds."""
+    from repro_torch.serving import FaultInjector, FaultPlanConfig, generate_fault_plan
+    plan = generate_fault_plan(FaultPlanConfig(seed=7, n_faults=12, horizon_s=0.25),
+                               session_ids=[r.session_id for r in reqs])
+    return FaultInjector(plan)
+
+
+def log_recovery(res, where):
+    log(f"  {where}: faults fired {res.fault_counts} ({res.faults_injected}); "
+        f"save/restore retries {res.save_retries}/{res.restore_retries} "
+        f"({res.retry_backoff_s * 1e3:.1f} ms virtual backoff), "
+        f"{res.degraded_restores} degraded restores, {res.corrupt_blobs} "
+        f"checksum rejects, {res.quarantines} quarantines, sessions "
+        f"{res.aborted_sessions} aborted / {res.failed_sessions} failed / "
+        f"{res.expired_sessions} expired; statuses "
+        f"{ {sid: s.status for sid, s in res.sessions.items()} }")
+
+
+@torch.inference_mode()
+def check_f32_tier_tokens(dev):
+    """Phase 9b: the host tier's arms at qwen2.5-7b width in f32, each
+    stream held to the full-backing run's, then a seeded fault plan."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import mixed_requests
+    from repro_torch.models.model import Model
+    cfg = get_config("qwen2.5-7b").replace(n_layers=2, dtype="float32")
+    reqs = mixed_requests(cfg, 6, base_prompt=100, base_new=24, seed=3)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 1
+    cut = 14      # 13 pages: two sessions cannot both reach their budgets
+    log(f"== phase 9b: the host KV tier inside the real path (qwen2.5-7b width, "
+        f"2 layers, f32): 6 sessions through 2 paged slots, prefill chunk 64, "
+        f"pool cut to {cut - 1} pages")
+    model = Model(cfg, decode_backend="cuda", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(3))
+    kw = dict(n_slots=2, max_len=max_len, paged=True, page_size=PAGE,
+              prefill_chunk=64)
+    tier = dict(n_pages=cut, kv_tier="host")
+    int8 = dict(kv_dtype=torch.int8, steps_per_tick=4)
+    arms = [("full backing, no tier", {}, None),
+            ("cut pool, no tier (re-prefill)", dict(n_pages=cut), "f32")]
+    arms += [(f"cut pool, host tier, {pol}", dict(tier, tier_policy=pol), "f32")
+             for pol in TIER_POLICIES]
+    arms += [("int8 KV, K=4, full backing", int8, None),
+             ("int8 KV, K=4, cut pool, host tier, spill", dict(tier, **int8), "int8")]
+    base = {}
+    for label, arm, against in arms:
+        sched, res = serve_sched(model, params, reqs, **kw, **arm)
+        got = streams_of(res)
+        if against is None:
+            base["int8" if "kv_dtype" in arm else "f32"] = got
+        same = got == base[against or ("int8" if "kv_dtype" in arm else "f32")]
+        log(f"  {label}: {res.preemptions} preemptions, {res.prefill_tokens} "
+            f"prefill tokens, pages spilled / restored {res.pages_spilled} / "
+            f"{res.pages_restored}, {res.tier_restores} parked restores, "
+            f"{res.host_prefix_hits} host prefix hits; {res.step_cache_size} "
+            f"graph(s); streams {'equal the full-backing run' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"phase 9b, {label}: greedy streams differ from "
+                                 "the full-backing run")
+        if "n_pages" in arm and res.preemptions < 1:
+            raise AssertionError(f"phase 9b, {label}: the cut pool preempted no one")
+        if arm.get("tier_policy", "spill") != "prefer-device" and "kv_tier" in arm \
+                and not (res.pages_spilled > 0 and res.tier_restores > 0):
+            raise AssertionError(f"phase 9b, {label}: the tier moved no pages")
+        if arm.get("tier_policy") == "prefer-device" and res.pages_spilled:
+            raise AssertionError("phase 9b: prefer-device spilled pages")
+        if "n_pages" in arm:
+            check_balanced(sched, f"phase 9b, {label}")
+    log(f"  int8 KV streams {'equal' if base['int8'] == base['f32'] else 'differ from'} "
+        "the f32 KV streams (int8 arms are held to the int8 full-backing run)")
+    sched, res = serve_sched(model, params, reqs, **kw, **tier, tier_policy="spill",
+                             fault_injector=fault_plan_for(reqs), retry_budget=2,
+                             self_audit=True)
+    log_recovery(res, "seeded fault plan (seed 7, 12 faults, every kind) through "
+                 "the spill arm, retry budget 2, self-audit")
+    check_recovered(res, cfg.vocab_size, "phase 9b fault plan", base["f32"])
+    if not res.faults_injected:
+        raise AssertionError("phase 9b: the fault plan fired nothing")
+    check_balanced(sched, "phase 9b fault plan")
+    del params, model, sched
+    torch.cuda.empty_cache()
+
+
+class TierProbe:
+    """Watches one tiered scheduler's store: device ms of every save and
+    restore call (CUDA events around the store's page movers), host ms of
+    every checksum, parks that copied, and for the first session restored
+    from its parked copy whether the pages it lands in equal a device copy
+    of its pages taken when it parked."""
+
+    def __init__(self, sched):
+        from repro_torch.serving.memory import tiers
+        self.tiers, self.crc_fn = tiers, tiers.blob_checksum
+        store = self.store = sched.store
+        keys = sched.model._page_slab_keys(sched.cache)
+        self.saves, self.restores, self.crc_ms = [], [], []
+        self.parks, self.snap, self.checked = 0, {}, None
+        save, restore, park, take = (store._save, store._restore, store.park,
+                                     store.take_parked)
+
+        def timed(fn, out):
+            def run(cache, pages, *rest):
+                s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s.record()
+                got = fn(cache, pages, *rest)
+                e.record()
+                e.synchronize()
+                out.append((len(pages), s.elapsed_time(e)))
+                return got
+            return run
+
+        def park_(sid, n_full, pages, cache):
+            snap = ({k: cache[k][:, list(pages[:n_full])].clone() for k in keys}
+                    if self.checked is None and n_full else None)
+            got = park(sid, n_full, pages, cache)
+            if got is not None:
+                self.parks += 1
+                if snap is not None:
+                    self.snap[sid] = snap
+            return got
+
+        def take_(sid, skip, pages, cache):
+            got = take(sid, skip, pages, cache)
+            if self.checked is None and sid in self.snap:
+                equal = all(torch.equal(cache[k][:, list(pages)],
+                                        self.snap[sid][k][:, skip:]) for k in keys)
+                self.checked = (sid, len(pages), equal)
+                self.snap.clear()
+            return got
+
+        def crc_(blob):
+            t0 = time.perf_counter()
+            c = self.crc_fn(blob)
+            self.crc_ms.append((time.perf_counter() - t0) * 1e3)
+            return c
+
+        store._save, store._restore = timed(save, self.saves), timed(restore, self.restores)
+        store.park, store.take_parked = park_, take_
+        tiers.blob_checksum = crc_
+
+    def close(self):
+        self.tiers.blob_checksum = self.crc_fn
+        self.snap.clear()
+
+
+PCIE_GTS = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}   # GT/s a lane
+
+
+def pcie_bound_gbs():
+    """The host link's one-way rate (GB/s) from ``nvidia-smi``'s maximum
+    PCIe generation and width: GT/s a lane x lanes x encoding / 8.
+    (None, what it printed) when it reports no link."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.max,pcie.link.width.max",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    try:
+        gen, width = (int(x) for x in smi.splitlines()[0].split(","))
+        gts = PCIE_GTS[gen]
+    except (IndexError, KeyError, ValueError):
+        return None, f"nvidia-smi printed {smi!r}"
+    enc = 0.8 if gen < 3 else 128 / 130
+    return gts * width * enc / 8, f"PCIe gen {gen} x{width}"
+
+
+def raw_copy(model, cache, prefill_wall_ms, n=128, reps=10):
+    """``save_kv_blobs`` and ``restore_kv_blobs`` of ``n`` pages (one
+    2048-token session) through a page-locked host pool, CUDA-event
+    medians of ``reps``, against the host link's bound."""
+    from repro_torch.serving.memory import (HostPagePool, blob_checksum,
+                                            restore_kv_blobs, save_kv_blobs)
+    pool = HostPagePool(n, pin_memory=True)
+    pages = list(range(1, n + 1))
+    blobs = save_kv_blobs(model.save_kv_pages, cache, pages, pool)
+    nbytes = sum(c.numel() * c.element_size() for b in blobs for c in b)
+    ms = {}
+    for name, fn in (("save", lambda: save_kv_blobs(model.save_kv_pages, cache,
+                                                    pages, pool)),
+                     ("restore", lambda: restore_kv_blobs(model.restore_kv_pages,
+                                                          cache, pages, blobs))):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        ms[name] = statistics.median(times)
+    t0 = time.perf_counter()
+    for b in blobs:
+        blob_checksum(b)
+    crc_ms = (time.perf_counter() - t0) * 1e3
+    # the same bytes as one contiguous copy each way between a pinned
+    # buffer and the card: what the link gives a copy with no gather
+    flat = torch.empty(nbytes, dtype=torch.uint8, device=cache["k"].device)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    for name, dst, src in (("d2h", host, flat), ("h2d", flat, host)):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            dst.copy_(src, non_blocking=True)
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        ms[f"bare_{name}"] = statistics.median(times)
+    del flat, host
+    bound, link = pcie_bound_gbs()
+    out = {"pages": n, "bytes": nbytes, "crc_ms": crc_ms, "link": link,
+           "link_bound_gbs": bound, "prefill_2048_wall_ms": prefill_wall_ms}
+    for name, what in (("save", "save_kv_blobs (gather, D2H into pool rows)"),
+                       ("restore", "restore_kv_blobs (H2D, index_copy_ into the pools)"),
+                       ("bare_d2h", "one contiguous pinned D2H copy"),
+                       ("bare_h2d", "one contiguous pinned H2D copy")):
+        gbs = nbytes / ms[name] / 1e6
+        out[f"{name}_ms"], out[f"{name}_gbs"] = ms[name], gbs
+        share = (f"{gbs / bound:.1%} of the {bound:.2f} GB/s of {link}" if bound
+                 else f"no link bound read: {link}")
+        log(f"  raw {what} of {n} pages ({nbytes} B): {ms[name]:.4f} ms, "
+            f"{gbs:.2f} GB/s ({share})")
+    log(f"  CRC32 of the {n} blobs on the host: {crc_ms:.2f} ms; virtual charge "
+        f"of one migration of {n} pages: {4 + n * 0.5:.1f} ms (4 ms launch tax + "
+        f"0.5 ms a page); re-prefill of the same 2048 tokens: {prefill_wall_ms:.4f} ms "
+        f"(phase 10's prefill wall)")
+    return out
+
+
+def log_probe(probe, label):
+    for name, rows in (("park (save)", probe.saves), ("restore", probe.restores)):
+        if rows:
+            pages = sum(n for n, _ in rows)
+            ms = sum(t for _, t in rows)
+            log(f"    {name} copies: {len(rows)}, {pages} pages, {ms:.3f} ms device "
+                f"({ms / pages * 1e3:.1f} us a page); each (pages, ms): "
+                + ", ".join(f"({n}, {t:.3f})" for n, t in rows))
+    if probe.crc_ms:
+        log(f"    CRC32 on the host: {len(probe.crc_ms)} blobs, "
+            f"{sum(probe.crc_ms):.2f} ms ({statistics.median(probe.crc_ms):.4f} ms a "
+            "page, median)")
+    charge = sum(4 + 0.5 * n for n, _ in probe.saves + probe.restores)
+    log(f"    virtual charge of these copies: {charge:.1f} ms (4 ms + 0.5 ms a page "
+        "per migration)")
+
+
+@torch.inference_mode()
+def tiered_serving(dev, prefill_wall_ms):
+    """Phase 16: the host tier at qwen2.5-7b full width."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch
+    from repro_torch.launch.serve import mixed_requests
+    from repro_torch.models.model import Model
+    from repro_torch.serving import (SlotScheduler, generate_trace, poisson_config,
+                                     slo_report)
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen2.5-7b")
+
+    def log_t(what):
+        log(f"  ({what} {time.perf_counter() - t_phase:.1f} s into phase 16)")
+    n_pages = 1 + 340      # about 2.5 of the sessions below
+    log(f"== phase 16: the host KV tier at full width, qwen2.5-7b (28 layers, "
+        f"bf16), 8 sessions through 4 paged slots, prompts {PROMPT}+, {NEW}+ new "
+        f"tokens, page {PAGE}, prefill chunk 512, a pool of {n_pages - 1} pages, "
+        "kv_tier host, spill")
+    model = Model(cfg, decode_backend="cuda", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    reqs = mixed_requests(cfg, 8, base_prompt=PROMPT, base_new=NEW, seed=0)
+    log_t("weights drawn")
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 1
+    kw = dict(n_slots=4, max_len=max_len, paged=True, page_size=PAGE,
+              n_pages=n_pages, prefill_chunk=512, kv_tier="host",
+              tier_policy="spill")
+    norms = 2 * cfg.n_layers + 1
+    out = {"cells": {}}
+    counts = {}
+    budgets = {r.session_id: r.max_new_tokens for r in reqs}
+    # the control arm on the same pool: the tier places nothing, so a
+    # preempted session re-prefills its prompt and generated prefix
+    sched, res = serve_sched(model, params, reqs, **dict(kw, tier_policy="prefer-device"))
+    step_s = [t for s in res.sessions.values() for t in s.step_times_s]
+    out["prefer_device"] = dict(p50_ms=statistics.median(step_s) * 1e3,
+                                tok_s=res.tokens_per_s, preemptions=res.preemptions,
+                                prefill_tokens=res.prefill_tokens, wall_s=res.wall_s)
+    log(f"  bf16 KV, K=1, the same pool, prefer-device (no parking: preempted "
+        f"sessions re-prefill): {res.run_tokens} tokens in {res.ticks} ticks, "
+        f"{res.preemptions} preemptions, {res.prefill_tokens} prefill tokens, "
+        f"{res.pages_spilled} pages spilled; p50 decode time per token "
+        f"{out['prefer_device']['p50_ms']:.4f} ms, {res.tokens_per_s:.2f} tok/s over "
+        f"{res.wall_s:.3f} s wall")
+    if {sid: len(s.tokens) for sid, s in res.sessions.items()} != budgets \
+            or res.pages_spilled:
+        raise AssertionError("phase 16, prefer-device: sessions ended short or "
+                             "pages were spilled")
+    check_balanced(sched, "phase 16, prefer-device")
+    del sched
+    for label, kv_dtype, K in (("bf16 KV, K=1", None, 1), ("int8 KV, K=4", torch.int8, 4)):
+        sched = SlotScheduler(model, params, kv_dtype=kv_dtype, steps_per_tick=K, **kw)
+        probe = TierProbe(sched)
+        for r in reqs:
+            sched.submit(r)
+        zero_counts()
+        try:
+            res = sched.run()
+        finally:
+            probe.close()
+        got = launched()
+        captured = dispatch.captured_launches.get("paged_decode_attention", 0)
+        replayed = dispatch.replay_launches.get("paged_decode_attention", 0)
+        rms_captured = dispatch.captured_launches.get("rmsnorm", 0)
+        rms_replayed = dispatch.replay_launches.get("rmsnorm", 0)
+        counts[label] = (got["paged_decode_attention"], got["rmsnorm"])
+        step_s = [t for s in res.sessions.values() for t in s.step_times_s]
+        p50 = statistics.median(step_s) * 1e3
+        log(f"  {label}: {res.run_tokens} tokens in {res.ticks} ticks / "
+            f"{res.dispatches} decode dispatches, {res.preemptions} preemptions, "
+            f"{probe.parks} parks, {res.tier_restores} parked restores, pages "
+            f"spilled / restored {res.pages_spilled} / {res.pages_restored}, "
+            f"{res.prefill_tokens} prefill tokens; {res.step_cache_size} graph(s); "
+            f"kernel-2 launches {got['paged_decode_attention']} ({K} x "
+            f"{cfg.n_layers} x ({res.dispatches} replays + 1 warm-up)), rmsnorm "
+            f"launches {got['rmsnorm']} (replays {rms_replayed} = {res.dispatches} "
+            f"x {K} x {norms})")
+        log(f"    p50 decode time per token {p50:.4f} ms (n={len(step_s)}), "
+            f"{res.tokens_per_s:.2f} tok/s over {res.wall_s:.3f} s wall; host "
+            f"{res.host_dispatch_s:.3f} s dispatching + {res.host_sync_s:.3f} s "
+            "waiting for tokens")
+        log_probe(probe, label)
+        if {sid: len(s.tokens) for sid, s in res.sessions.items()} != budgets:
+            raise AssertionError(f"phase 16, {label}: sessions ended short")
+        if probe.parks < 3 or res.tier_restores < 3:
+            raise AssertionError(f"phase 16, {label}: {probe.parks} parks and "
+                                 f"{res.tier_restores} restores, want >= 3 each")
+        if probe.checked is None or not probe.checked[2]:
+            raise AssertionError(f"phase 16, {label}: restored pages differ from "
+                                 f"the bytes parked ({probe.checked})")
+        log(f"    first parked restore: {probe.checked[0]}, {probe.checked[1]} "
+            "pages, torch.equal to the device copy taken at park")
+        if (res.step_cache_size != 1 or captured != K * cfg.n_layers
+                or replayed != res.dispatches * K * cfg.n_layers
+                or rms_captured != K * norms
+                or rms_replayed != res.dispatches * K * norms):
+            raise AssertionError(f"phase 16, {label}: the captured step did not run "
+                                 f"kernel 2 {cfg.n_layers} and kernel 5 {norms} "
+                                 "times per device step")
+        check_balanced(sched, f"phase 16, {label}")
+        # the device's busy share over a second run of the same cell
+        sched2 = SlotScheduler(model, params, kv_dtype=kv_dtype, steps_per_tick=K, **kw)
+        for r in reqs:
+            sched2.submit(r)
+        t_rerun = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sched2.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+        log(f"    busy share {busy / wall:.1%} ({busy:.3f} s of device work, kernels "
+            f"and copies, in a profiled rerun of {wall:.3f} s wall; the rerun and "
+            f"its trace took {time.perf_counter() - t_rerun:.1f} s)")
+        out["cells"][label] = dict(
+            p50_ms=p50, tok_s=res.tokens_per_s, busy_share=busy / wall,
+            parks=probe.parks, restores=res.tier_restores,
+            pages_spilled=res.pages_spilled, pages_restored=res.pages_restored,
+            save_ms=[t for _, t in probe.saves], save_pages=[n for n, _ in probe.saves],
+            restore_ms=[t for _, t in probe.restores],
+            restore_pages=[n for n, _ in probe.restores],
+            crc_ms_total=sum(probe.crc_ms), preemptions=res.preemptions)
+        if K == 1:
+            out["raw_copy"] = raw_copy(model, sched.cache, prefill_wall_ms)
+        del sched, sched2, probe
+        torch.cuda.empty_cache()
+        log_t(f"{label} done")
+
+    sched, res = serve_sched(model, params, reqs, **kw,
+                             fault_injector=fault_plan_for(reqs), retry_budget=2,
+                             self_audit=True)
+    log_recovery(res, "the same fault plan at full width (bf16 KV, K=1, spill)")
+    check_recovered(res, cfg.vocab_size, "phase 16 fault plan")
+    if set(res.sessions) != set(budgets):
+        raise AssertionError("phase 16 fault plan: a session has no result")
+    check_balanced(sched, "phase 16 fault plan")
+    out["fault_counts"] = res.fault_counts
+    del sched
+    log_t("fault plan done")
+
+    trace = generate_trace(poisson_config(seed=13, n_requests=16,
+                                          vocab_size=cfg.vocab_size, rate_rps=50.0))
+    tkw = dict(n_slots=4, max_len=trace.max_len() + 1, paged=True, page_size=PAGE,
+               n_pages=1 + 7, kv_tier="host", tier_policy="spill")
+    toks = {}
+    for prio in (True, False):
+        sched, res = serve_sched(model, params, trace.requests, **tkw,
+                                 priority_preemption=prio)
+        rep = slo_report(res, trace.classes)
+        toks[prio] = streams_of(res)
+        name = "priority" if prio else "youngest-first"
+        log(f"  trace replay (poisson seed 13, 16 requests at 50 req/s, 4 slots, "
+            f"7 pages, host tier), {name} preemption: {res.preemptions} "
+            f"preemptions, {res.tier_restores} parked restores; ttft p50/p95/p99 "
+            + "/".join(f"{rep['ttft'][q]:.4f}" for q in ("p50", "p95", "p99"))
+            + " s, tpot p50/p95/p99 "
+            + "/".join(f"{rep['tpot'][q]:.4f}" for q in ("p50", "p95", "p99"))
+            + f" s (virtual); wall ttft p50 {rep['ttft_wall']['p50'] * 1e3:.2f} ms; "
+            f"goodput under SLO {rep['goodput_tok_s']:.1f} tok/s "
+            f"({rep['slo_sessions']}/{rep['sessions']} sessions in SLO, "
+            f"{rep['tokens_per_s_virtual']:.1f} tok/s served)")
+        for cname, c in rep["classes"].items():
+            log(f"    class {cname}: {c['sessions']} sessions, slo_frac "
+                f"{c['slo_frac']:.2f}, goodput {c['goodput_tok_s']:.1f} tok/s")
+        check_recovered(res, cfg.vocab_size, f"phase 16 trace, {name}")
+        check_balanced(sched, f"phase 16 trace, {name}")
+        out[f"slo_{name}"] = rep
+        del sched
+    log(f"  greedy streams {'identical' if toks[True] == toks[False] else 'differ'} "
+        "across the two preemption orders (bf16: a re-prefilled tail may round "
+        "otherwise than the decode that wrote it)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16 took {out['seconds']:.1f} s")
+    del params, model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
 # ---------------------------------------------------------------- main
 PENDING = []    # TPU kernels still to port: none
 
@@ -1755,6 +2271,7 @@ def main(argv=None) -> int:
     check_f32_tokens(dev)
     check_f32_paged_tokens(dev)
     check_f32_ssm_tokens(dev)
+    check_f32_tier_tokens(dev)
     da_launches, i4_launches, dense_norms, prefill = main_path(dev)
     rows[1].update(prefill)
     torch.cuda.empty_cache()
@@ -1762,15 +2279,19 @@ def main(argv=None) -> int:
     ssm = [ssm_main_path(dev, "mamba2-2.7b", 13),
            ssm_main_path(dev, "zamba2-1.2b", 14)]
     ab = dispatch_ab(dev)
+    tier_counts, tier = tiered_serving(dev, prefill["prefill_wall_bf16_ms"])
     dense, int4 = "qwen2.5-7b batch-1 bf16", "qwen2.5-7b batch-1 int4"
     paged = ("qwen2.5-7b paged bf16 KV", "qwen2.5-7b paged int8 KV")
+    tiered = ("qwen2.5-7b tiered paged bf16 KV", "qwen2.5-7b tiered paged int8 KV")
+    t_bf16, t_int8 = tier_counts["bf16 KV, K=1"], tier_counts["int8 KV, K=4"]
     mamba, zamba = "mamba2-2.7b batch-1", "zamba2-1.2b batch-1"
     by_path = [
         {dense: da_launches, zamba: ssm[1]["decode_attention"]},
         {int4: i4_launches},
-        {paged[0]: paged_launches[0]},
-        {paged[1]: paged_launches[1]},
+        {paged[0]: paged_launches[0], tiered[0]: t_bf16[0]},
+        {paged[1]: paged_launches[1], tiered[1]: t_int8[0]},
         {dense: dense_norms, paged[0]: paged_norms[0], paged[1]: paged_norms[1],
+         tiered[0]: t_bf16[1], tiered[1]: t_int8[1],
          mamba: ssm[0]["rmsnorm"], zamba: ssm[1]["rmsnorm"]},
         {mamba: ssm[0]["ssd_update"], zamba: ssm[1]["ssd_update"]}]
     for row, counts in zip(rows, by_path):
@@ -1779,6 +2300,7 @@ def main(argv=None) -> int:
         log(f"  {row['name']} launches per main path: {counts}")
     log(json.dumps({"pending_kernels": PENDING}))
     log(json.dumps({"dispatch_ab": ab}))
+    log(json.dumps({"host_tier": tier}))
     log(smi.splitlines()[0])
     print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {

@@ -18,9 +18,15 @@ horizon-K ticks):
       --reduced --device cpu --paged --prefix-cache --kv-quant int8 \
       --slots 3 --sessions 6 --shared-prefix 16 --timed
 
+and the host-DRAM KV tier, trace replay with SLO reports and seeded
+fault plans on the paged scheduler:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+      --reduced --device cpu --paged --slots 2 --sessions 6 --pages 12 \
+      --kv-tier host --trace poisson --fault-plan mixed --slo-json
+
 Runs on the CUDA card unless ``--device cpu`` is given; weights are
-random, drawn on the device from ``--seed``.  Trace replay, the host KV
-tier and fault plans arrive with their own slices.
+random, drawn on the device from ``--seed``.
 """
 from __future__ import annotations
 
@@ -99,11 +105,82 @@ def main(argv=None):
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many identical tokens to every "
                          "session's prompt (what --prefix-cache shares)")
+    # host-DRAM KV page tier (serving/memory/tiers.py)
+    ap.add_argument("--kv-tier", default="none", choices=["none", "host"],
+                    help="with --paged: add a host-DRAM page tier — "
+                         "preempted sessions park their full KV pages "
+                         "host-side and re-admission restores them "
+                         "instead of re-prefilling; LRU-evicted prefix "
+                         "pages spill into a host prefix index "
+                         "(implies --paged)")
+    ap.add_argument("--tier-policy", default="spill",
+                    choices=["prefer-device", "spill", "lookahead"],
+                    help="placement/migration policy for --kv-tier host: "
+                         "prefer-device never spills (the control arm), "
+                         "spill migrates exactly on eviction, lookahead "
+                         "additionally pre-copies the predicted next "
+                         "victim's cold pages on idle ticks")
+    ap.add_argument("--host-pages", type=int, default=None,
+                    help="host pool capacity in pages (default: one full "
+                         "device pool)")
+    # trace-driven load replay (serving/trace.py)
+    ap.add_argument("--trace", default=None, choices=["poisson", "bursty"],
+                    help="replay a seeded arrival trace instead of the "
+                         "all-at-once session wave: requests are "
+                         "released into the admission queue by virtual "
+                         "arrival time and the run reports per-class "
+                         "TTFT / per-token latency percentiles and "
+                         "goodput-under-SLO on the scheduler's "
+                         "deterministic virtual clock (implies "
+                         "--continuous; --sessions sets the request "
+                         "count)")
+    ap.add_argument("--trace-seed", type=int, default=13,
+                    help="trace generator seed (same seed -> "
+                         "byte-identical trace)")
+    ap.add_argument("--rate", type=float, default=25.0,
+                    help="mean arrival rate of the trace, requests per "
+                         "virtual second")
+    ap.add_argument("--no-priority-preemption", action="store_true",
+                    help="page-pressure eviction picks the youngest "
+                         "session regardless of priority (the FIFO "
+                         "baseline) instead of "
+                         "lowest-priority-youngest")
+    ap.add_argument("--slo-json", action="store_true",
+                    help="with --trace: print the full SLO report as "
+                         "JSON instead of the one-line summary")
+    # fault injection + graceful degradation (serving/faults.py)
+    ap.add_argument("--fault-plan", default=None,
+                    help="with --trace: arm a chaos plan against the "
+                         "replay — 'mixed' generates a seeded plan over "
+                         "every fault kind (--chaos-seed; same seed -> "
+                         "byte-identical schedule), anything else is "
+                         "read as a fault-plan file (plan_to_text "
+                         "format).  Injected copy failures retry with "
+                         "backoff then degrade to re-prefill, poisoned "
+                         "logits quarantine their lane, aborts free the "
+                         "session's slot and pages with a terminal "
+                         "event")
+    ap.add_argument("--chaos-seed", type=int, default=7,
+                    help="seed for --fault-plan mixed")
+    ap.add_argument("--retry-budget", type=int, default=2,
+                    help="retries per failed host-tier copy before the "
+                         "restore degrades to re-prefill (backoff is "
+                         "charged to the virtual clock)")
+    ap.add_argument("--session-ttl", type=float, default=None,
+                    help="per-session deadline in virtual seconds since "
+                         "arrival; overdue sessions are expired and "
+                         "their slot/pages freed")
+    ap.add_argument("--restore-patience", type=int, default=0,
+                    help="ticks a parked host copy is held while the "
+                         "page gate can't cover its restore before "
+                         "re-prefill admission supersedes it")
     args = ap.parse_args(argv)
     if args.weights:
         args.quant = {"int8": "int8_fused",
                       "int4": "int4_fused"}.get(args.weights, args.weights)
-    if args.prefix_cache:
+    if args.trace:
+        args.continuous = True
+    if args.prefix_cache or args.kv_tier != "none":
         args.paged = True
     if args.paged:
         args.continuous = True
@@ -113,8 +190,9 @@ def main(argv=None):
         cfg = cfg.reduced()
     if cfg.family not in ATTENTION_FAMILIES and (
             args.continuous or args.kv_quant != "none"):
-        ap.error(f"--continuous, --paged, --prefix-cache and --kv-quant serve "
-                 f"the attention families; {args.arch} is {cfg.family!r} "
+        ap.error(f"--continuous, --paged, --prefix-cache, --kv-tier, --trace "
+                 f"and --kv-quant serve the attention families; {args.arch} "
+                 f"is {cfg.family!r} "
                  "(batch-1 streamed or fused decode only)")
     if args.dispatch != "full_jit" and (args.paged or args.steps_per_tick > 1):
         ap.error(f"--dispatch {args.dispatch}: --paged serving and horizon-K "
@@ -125,6 +203,8 @@ def main(argv=None):
     engine = DecodeEngine(
         model, params, quant_path=args.quant,
         kv_dtype=torch.int8 if args.kv_quant == "int8" else None)
+    if args.trace:
+        return serve_trace(engine, cfg, args)
     if args.continuous:
         return serve_continuous(engine, cfg, args)
 
@@ -175,6 +255,109 @@ def mixed_requests(cfg, n_sessions: int, *, base_prompt: int,
     return reqs
 
 
+def serve_trace(engine: DecodeEngine, cfg, args):
+    """Trace-driven load replay: generate a seeded arrival trace,
+    release its requests by virtual arrival time through the continuous
+    scheduler, and report the SLO metrics (TTFT / per-token latency
+    percentiles, goodput-under-SLO) per session class.  Returns the
+    ``ContinuousResult`` and the SLO report."""
+    import json
+
+    from repro_torch.serving import generate_trace, slo_report
+    from repro_torch.serving.trace import bursty_config, poisson_config
+    mk = bursty_config if args.trace == "bursty" else poisson_config
+    tcfg = mk(seed=args.trace_seed, n_requests=args.sessions,
+              vocab_size=cfg.vocab_size, rate_rps=args.rate)
+    trace = generate_trace(tcfg)
+    max_len = trace.max_len() + 1
+    injector = None
+    if args.fault_plan:
+        from repro_torch.serving.faults import (FaultInjector, FaultPlanConfig,
+                                                generate_fault_plan,
+                                                plan_from_text, validate_plan)
+        sids = [r.session_id for r in trace.requests]
+        if args.fault_plan == "mixed":
+            horizon = round(max(r.arrival_s for r in trace.requests)
+                            + 0.25, 6)
+            plan = generate_fault_plan(
+                FaultPlanConfig(seed=args.chaos_seed, n_faults=12,
+                                horizon_s=horizon), session_ids=sids)
+        else:
+            with open(args.fault_plan) as fh:
+                plan = plan_from_text(fh.read())
+            validate_plan(plan)
+        injector = FaultInjector(plan)
+    res = engine.generate_continuous(
+        trace.requests, n_slots=args.slots, max_len=max_len,
+        temperature=args.temperature, seed=args.seed,
+        dispatch_mode=args.dispatch, paged=args.paged,
+        page_size=args.page_size, n_pages=args.pages,
+        prefill_chunk=args.prefill_chunk,
+        steps_per_tick=args.steps_per_tick, timed=args.timed,
+        prefix_cache=args.prefix_cache, adaptive_k=args.adaptive_k,
+        priority_preemption=not args.no_priority_preemption,
+        kv_tier=args.kv_tier, tier_policy=args.tier_policy,
+        host_pages=args.host_pages,
+        fault_injector=injector, retry_budget=args.retry_budget,
+        session_ttl_s=args.session_ttl,
+        restore_patience=args.restore_patience,
+        self_audit=injector is not None)
+    rep = slo_report(res, trace.classes)
+    if args.slo_json:
+        print(json.dumps(rep, indent=2, allow_nan=False))
+        return res, rep
+    dev = engine.model.device
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"replayed {args.trace} trace (seed {args.trace_seed}, "
+          f"{len(trace.requests)} requests at {args.rate:g} req/s) through "
+          f"{args.slots} slots on {where}, steps_per_tick="
+          f"{args.steps_per_tick}{' adaptive' if args.adaptive_k else ''}: "
+          f"{res.dispatches} decode dispatches, "
+          f"{res.preemptions} preemptions, "
+          f"virtual makespan {rep['makespan_s']:.3f}s")
+    if res.kv_tier != "none":
+        print(f"kv tier ({res.tier_policy}): {res.pages_spilled} spilled / "
+              f"{res.pages_restored} restored pages, "
+              f"{res.tier_restores} parked restores, "
+              f"{res.host_prefix_hits} host prefix hits")
+    if injector is not None:
+        fc = " ".join(f"{k}:{v}" for k, v in res.fault_counts.items())
+        print(f"chaos plan ({args.fault_plan}, seed {args.chaos_seed}): "
+              f"{res.faults_injected} faults fired"
+              f"{' (' + fc + ')' if fc else ''}")
+        print(f"recovery: {res.save_retries}/{res.restore_retries} "
+              f"save/restore retries "
+              f"({res.retry_backoff_s * 1e3:.1f} ms virtual backoff), "
+              f"{res.degraded_restores} degraded restores, "
+              f"{res.corrupt_blobs} checksum rejects, "
+              f"{res.quarantines} quarantines; sessions "
+              f"{res.aborted_sessions} aborted / "
+              f"{res.failed_sessions} failed / "
+              f"{res.expired_sessions} expired")
+    if rep["ttft"] is not None and rep["tpot"] is not None:
+        print(f"ttft p50/p95/p99 {rep['ttft']['p50']:.4f}/"
+              f"{rep['ttft']['p95']:.4f}/{rep['ttft']['p99']:.4f} s, "
+              f"tpot p50/p95/p99 {rep['tpot']['p50']:.4f}/"
+              f"{rep['tpot']['p95']:.4f}/{rep['tpot']['p99']:.4f} s "
+              f"(virtual)")
+    for name, c in rep["classes"].items():
+        print(f"  class {name}: {c['sessions']} sessions, "
+              f"slo_frac {c['slo_frac']:.2f} "
+              f"(ttft<={c['slo_ttft_s']:g}s, tpot_p95<={c['slo_tpot_s']:g}s), "
+              f"goodput {c['goodput_tok_s']:.1f} tok/s")
+    dropped = (f", {rep['failed_sessions']} dropped"
+               if rep.get("failed_sessions") else "")
+    print(f"goodput under SLO: {rep['goodput_tok_s']:.1f} tok/s "
+          f"({rep['slo_sessions']}/{rep['sessions']} sessions in SLO"
+          f"{dropped}, "
+          f"{rep.get('tokens_per_s_virtual', 0.0):.1f} tok/s served)")
+    if res.adaptive_k:
+        hist = " ".join(f"K{k}:{v}" for k, v in
+                        sorted(res.horizon_hist.items()))
+        print(f"adaptive horizon histogram: {hist}")
+    return res, rep
+
+
 def serve_continuous(engine: DecodeEngine, cfg, args):
     reqs = mixed_requests(cfg, args.sessions, base_prompt=args.prompt_len,
                           base_new=args.new_tokens, seed=args.seed,
@@ -187,7 +370,9 @@ def serve_continuous(engine: DecodeEngine, cfg, args):
         page_size=args.page_size, n_pages=args.pages,
         prefill_chunk=args.prefill_chunk,
         steps_per_tick=args.steps_per_tick, timed=args.timed,
-        prefix_cache=args.prefix_cache, adaptive_k=args.adaptive_k)
+        prefix_cache=args.prefix_cache, adaptive_k=args.adaptive_k,
+        kv_tier=args.kv_tier, tier_policy=args.tier_policy,
+        host_pages=args.host_pages)
     n_tok = sum(len(s.tokens) for s in res.sessions.values())
     layout = "paged" if args.paged else "contiguous"
     backend = engine.model.decode_backend
@@ -226,6 +411,13 @@ def serve_continuous(engine: DecodeEngine, cfg, args):
                   f"prefill work skipped), "
                   f"{res.cow_copies} CoW page cop"
                   f"{'y' if res.cow_copies == 1 else 'ies'}")
+        if res.kv_tier != "none":
+            print(f"kv tier ({res.tier_policy}): "
+                  f"{res.pages_spilled} pages spilled / "
+                  f"{res.pages_restored} restored, "
+                  f"{res.tier_restores} parked-session restores, "
+                  f"{res.host_prefix_hits} host prefix hits, "
+                  f"{res.host_pages_used} host pages resident")
         if res.step_kv_blocks:
             tb = serving_traffic_bytes(res.step_kv_blocks, cfg,
                                        page_size=args.page_size,

@@ -310,6 +310,39 @@ class Model:
             cache[key][:, dst].copy_(cache[key][:, src])
         return cache
 
+    def save_kv_pages(self, cache: Cache, pages: torch.Tensor
+                      ) -> Tuple[torch.Tensor, ...]:
+        """Gather ``pages`` (a (P,) id vector) out of the paged pool —
+        every layer's K and V rows — as new (L, P, page, ...) slabs: the
+        device-to-host half of KV-page tiering (serving/memory/tiers.py).
+        One slab per page-indexed pool: (k, v), or (k, v, k_scale,
+        v_scale) for int8 KV, so codes and scales move together,
+        bit-exact.  The pool is only read."""
+        if "block_table" not in cache:
+            raise ValueError("save_kv_pages targets paged caches")
+        pages = pages.to(cache["k"].device)
+        return tuple(cache[key].index_select(1, pages)
+                     for key in self._page_slab_keys(cache))
+
+    def restore_kv_pages(self, cache: Cache, pages: torch.Tensor,
+                         *slabs: torch.Tensor) -> Cache:
+        """Write saved slabs back into pool ``pages``, in place — the
+        host-to-device half of tiering.  ``slabs`` follow
+        ``save_kv_pages``' order; ``pages`` must not repeat.  Unlike the
+        reference, which returns a new cache, the pools keep their
+        tensors: a captured decode graph reads them at fixed addresses.
+        Returns the same cache."""
+        if "block_table" not in cache:
+            raise ValueError("restore_kv_pages targets paged caches")
+        keys = self._page_slab_keys(cache)
+        if len(slabs) != len(keys):
+            raise ValueError(f"restore_kv_pages takes {len(keys)} slabs "
+                             f"({keys}), got {len(slabs)}")
+        pages = pages.to(cache["k"].device)
+        for key, slab in zip(keys, slabs):
+            cache[key].index_copy_(1, pages, slab.to(cache[key].dtype))
+        return cache
+
     # ------------------------------------------------------------------
     # prefill
     # ------------------------------------------------------------------

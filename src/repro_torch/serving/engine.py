@@ -193,7 +193,22 @@ class DecodeEngine:
                             eos_id: Optional[int] = None, timed: bool = True,
                             prefix_cache: bool = False,
                             adaptive_k: bool = False,
-                            kv_tier: str = "none", fault_injector=None):
+                            min_steps_per_tick: int = 1,
+                            priority_preemption: bool = True,
+                            virtual_step_s: float = 1e-3,
+                            virtual_dispatch_s: float = 4e-3,
+                            shared_programs: bool = False,
+                            kv_tier: str = "none",
+                            tier_policy="spill",
+                            host_pages: Optional[int] = None,
+                            virtual_host_copy_s: float = 5e-4,
+                            fault_injector=None,
+                            retry_budget: int = 2,
+                            session_ttl_s: Optional[float] = None,
+                            restore_patience: int = 0,
+                            quarantine_budget: int = 2,
+                            self_audit: bool = False,
+                            logit_screen: Optional[bool] = None):
         """Continuous batching: serve ``sessions`` (SessionRequest list)
         through a fixed number of cache slots — admission, per-slot
         prefill, shared batched decode, eviction, FIFO backfill.
@@ -203,10 +218,31 @@ class DecodeEngine:
         decode ticks, ``prefix_cache`` shares page-aligned prompt
         prefixes through copy-on-write pages).  ``steps_per_tick=K > 1``
         fuses K decode steps into one macro-tick with on-device sampling
-        (``adaptive_k`` picks K per tick from the halving ladder);
-        ``eos_id`` ends sessions early.  On the card each decode program
-        is one captured CUDA graph per (route, K).  The engine's
-        ``kv_dtype`` selects int8 KV.  Returns a ``ContinuousResult``."""
+        (``adaptive_k`` picks K per tick from the halving ladder down to
+        ``min_steps_per_tick``); ``eos_id`` ends sessions early.  On the
+        card each decode program is one captured CUDA graph per (route,
+        K).  The engine's ``kv_dtype`` selects int8 KV.
+
+        Requests with ``arrival_s > 0`` are replayed: released by virtual
+        arrival time against the scheduler's clock (``virtual_step_s`` a
+        device decode step, ``virtual_dispatch_s`` a dispatched program;
+        serving/trace.py builds traces and scores the SLO metrics);
+        ``priority_preemption=False`` evicts youngest-first.
+        ``kv_tier='host'`` (paged only) parks preempted sessions' full
+        pages in host DRAM and restores them on re-admission, and gives
+        LRU-evicted prefix pages a host prefix index — placement by
+        ``tier_policy`` (prefer-device | spill | lookahead), capacity
+        ``host_pages``, virtual cost ``virtual_host_copy_s`` a page.
+        ``fault_injector`` (serving/faults.py) arms a seeded fault plan:
+        copy failures retry (``retry_budget``) then degrade to
+        re-prefill, poisoned logits quarantine their lane
+        (``quarantine_budget`` requeues, then fail-closed), aborts and
+        ``session_ttl_s`` end a session with a terminal status,
+        ``self_audit`` checks the page accounting on idle ticks, and
+        ``restore_patience`` holds a parked copy that many ticks before
+        re-prefill supersedes it.  ``shared_programs`` is accepted for
+        the reference's API; each scheduler captures its own graphs.
+        Returns a ``ContinuousResult``."""
         from repro_torch.serving.scheduler import SlotScheduler
         sched = SlotScheduler(self.model, self.params, n_slots=n_slots,
                               max_len=max_len, dispatch_mode=dispatch_mode,
@@ -216,8 +252,22 @@ class DecodeEngine:
                               n_pages=n_pages, prefill_chunk=prefill_chunk,
                               steps_per_tick=steps_per_tick, eos_id=eos_id,
                               timed=timed, prefix_cache=prefix_cache,
-                              adaptive_k=adaptive_k, kv_tier=kv_tier,
-                              fault_injector=fault_injector)
+                              adaptive_k=adaptive_k,
+                              min_steps_per_tick=min_steps_per_tick,
+                              priority_preemption=priority_preemption,
+                              virtual_step_s=virtual_step_s,
+                              virtual_dispatch_s=virtual_dispatch_s,
+                              shared_programs=shared_programs,
+                              kv_tier=kv_tier, tier_policy=tier_policy,
+                              host_pages=host_pages,
+                              virtual_host_copy_s=virtual_host_copy_s,
+                              fault_injector=fault_injector,
+                              retry_budget=retry_budget,
+                              session_ttl_s=session_ttl_s,
+                              restore_patience=restore_patience,
+                              quarantine_budget=quarantine_budget,
+                              self_audit=self_audit,
+                              logit_screen=logit_screen)
         for req in sessions:
             sched.submit(req)
         return sched.run()

@@ -15,6 +15,14 @@ The capture helpers and the launch tallies (``captured_launches``,
 and the dispatch A/B executors.  Under the ``eager`` and ``stage_jit``
 arms the scheduler runs its ``StepProgram`` executor instead of ``step``,
 as the reference leaves ``step`` unbuilt under them.
+
+With the host KV tier, ``save_pages`` and ``restore_pages`` gather pages
+out of the pools and write them back in place (``Model.save_kv_pages``,
+``restore_kv_pages``): plain calls between graph replays, never
+captured.  The reference's ``shared_programs`` shares jit wrappers
+across schedulers over one model; a captured graph reads its own
+cache's addresses, so here each scheduler keeps its own programs (the
+scheduler accepts the flag for API parity).
 """
 from __future__ import annotations
 
@@ -30,13 +38,14 @@ from repro_torch.models.model import Model
 class SchedulerPrograms:
     """The decode and prefill programs of one ``SlotScheduler``.
 
-    ``prefill_chunk``/``copy_page`` exist only paged, ``prefill_slot``
-    only contiguous.  ``step``/``steps`` return (logits, cache) and
+    ``prefill_chunk``/``copy_page`` exist only paged, ``save_pages``/
+    ``restore_pages`` only with the host KV tier, ``prefill_slot`` only
+    contiguous.  ``step``/``steps`` return (logits, cache) and
     (token matrix, cache); on the card the returned tensor is the
     graph's static output, overwritten by the next replay."""
 
     def __init__(self, model: Model, *, paged: bool, steps_per_tick: int,
-                 temperature: float):
+                 temperature: float, kv_tier: str = "none"):
         self.model = model
         self.capture = model.device.type == "cuda"
         if self.capture and steps_per_tick > 1 and temperature > 0.0:
@@ -46,6 +55,9 @@ class SchedulerPrograms:
         self.prefill_chunk = model.prefill_chunk_into_slot if paged else None
         self.copy_page = model.copy_kv_page if paged else None
         self.prefill_slot = None if paged else model.prefill_into_slot
+        tiered = paged and kv_tier == "host"
+        self.save_pages = model.save_kv_pages if tiered else None
+        self.restore_pages = model.restore_kv_pages if tiered else None
         self._graphs: Dict[tuple, _Captured] = {}
 
     def _capture(self, key, inputs: Dict[str, torch.Tensor], warm,

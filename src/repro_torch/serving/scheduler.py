@@ -10,18 +10,29 @@ on the card the step is one captured CUDA graph per (route, K)
 page grants, positions — lands in place in the tensors that graph reads
 (``PageStore.sync``).  For the dispatch A/B, ``dispatch_mode`` "eager"
 or "stage_jit" runs the K=1 step through the model's ``StepProgram``
-executor instead (contiguous slots only, as in the reference).  Prefill, the page copy and the cache are written
-in place, and each program returns the same cache dict.
+executor instead (contiguous slots only, as in the reference).
+Prefill, the page copy, the tier's restores and the cache are written in
+place, and each program returns the same cache dict.
+
+The host-DRAM KV tier (``kv_tier="host"``: preempted sessions park their
+full pages host-side and re-admission restores them, placement steered
+by a ``TierPolicy``), trace replay on the virtual clock
+(``SessionRequest.arrival_s``, ``priority_preemption``) and fault
+injection with recovery (``fault_injector``: bounded copy retries that
+degrade to re-prefill, checksum rejects, the logit screen's quarantine,
+aborts, the session TTL, pool-pressure holds, the idle-tick self-audit)
+follow the reference event for event; the tier's copies run between
+graph replays on the same stream.
 
 Sampling draws from a ``torch.Generator`` seeded with ``seed``; greedy
 streams are the contract, stochastic draws do not follow the
-reference's keys.  The host-DRAM KV tier (``kv_tier="host"``) and fault
-injection wait for their slices.
+reference's keys.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import heapq
 import time
 from typing import Deque, Dict, List, Optional, Tuple
 
@@ -30,7 +41,11 @@ import torch
 
 from repro_torch.core.dispatch import MODES, launch_count
 from repro_torch.models.model import Model
-from repro_torch.serving.memory import BlockAllocator, PageStore, PrefixCache
+from repro_torch.serving.faults import FaultInjector, InjectedFault
+from repro_torch.serving.memory import (BlockAllocator, PageStore, PrefixCache,
+                                        TierCopyError, TieredPageStore,
+                                        get_policy, restore_kv_blobs,
+                                        save_kv_blobs)
 from repro_torch.serving.programs import SchedulerPrograms
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.session import (ContinuousResult, Event,
@@ -49,18 +64,36 @@ class SlotScheduler(VirtualClockMixin):
                  prefill_chunk: Optional[int] = None,
                  steps_per_tick: int = 1, eos_id: Optional[int] = None,
                  timed: bool = True, prefix_cache: bool = False,
-                 adaptive_k: bool = False, kv_tier: str = "none",
-                 fault_injector=None):
-        if kv_tier != "none":
-            raise NotImplementedError(
-                "the host-DRAM KV tier (kv_tier='host') arrives with the "
-                "host-tier slice")
-        if fault_injector is not None:
-            raise NotImplementedError(
-                "fault injection arrives with the fault-injection slice")
+                 adaptive_k: bool = False, min_steps_per_tick: int = 1,
+                 priority_preemption: bool = True,
+                 virtual_step_s: float = 1e-3,
+                 virtual_dispatch_s: float = 4e-3,
+                 shared_programs: bool = False,
+                 kv_tier: str = "none",
+                 tier_policy="spill",
+                 host_pages: Optional[int] = None,
+                 virtual_host_copy_s: float = 5e-4,
+                 fault_injector: Optional[FaultInjector] = None,
+                 retry_budget: int = 2,
+                 session_ttl_s: Optional[float] = None,
+                 restore_patience: int = 0,
+                 quarantine_budget: int = 2,
+                 self_audit: bool = False,
+                 logit_screen: Optional[bool] = None):
         if n_slots < 1 or steps_per_tick < 1:
             raise ValueError(f"bad n_slots={n_slots} / steps_per_tick="
                              f"{steps_per_tick}")
+        if not 1 <= min_steps_per_tick <= steps_per_tick:
+            raise ValueError(f"min_steps_per_tick={min_steps_per_tick} must "
+                             f"lie in [1, steps_per_tick={steps_per_tick}]")
+        if kv_tier not in ("none", "host"):
+            raise ValueError(f"kv_tier must be 'none' or 'host', got "
+                             f"{kv_tier!r}")
+        if retry_budget < 0 or restore_patience < 0 or quarantine_budget < 0:
+            raise ValueError("retry_budget, restore_patience and "
+                             "quarantine_budget must be >= 0")
+        if session_ttl_s is not None and session_ttl_s <= 0:
+            raise ValueError(f"session_ttl_s={session_ttl_s} must be > 0")
         if dispatch_mode not in MODES:
             raise ValueError(f"dispatch_mode must be one of {MODES}, got "
                              f"{dispatch_mode!r}")
@@ -85,13 +118,18 @@ class SlotScheduler(VirtualClockMixin):
         self.host_dispatch_s = 0.0
         self.host_sync_s = 0.0
         self.adaptive_k = adaptive_k
-        self.min_steps_per_tick = 1
-        self.k_ladder: Tuple[int, ...] = build_k_ladder(steps_per_tick, 1)
-        # virtual clock (the reference's defaults): launch tax per
-        # dispatch + service quantum per decode step; deterministic host
-        # arithmetic that paces arrivals and the adaptive horizon
-        self.virtual_step_s = 1e-3
-        self.virtual_dispatch_s = 4e-3
+        self.min_steps_per_tick = min_steps_per_tick
+        self.priority_preemption = priority_preemption
+        self.k_ladder: Tuple[int, ...] = build_k_ladder(
+            steps_per_tick, min_steps_per_tick)
+        # virtual clock (trace replay / SLO metrics): launch tax per
+        # dispatch + service quantum per decode step + host-copy
+        # quantum per migrated page; deterministic host arithmetic
+        self.virtual_step_s = virtual_step_s
+        self.virtual_dispatch_s = virtual_dispatch_s
+        self.virtual_host_copy_s = virtual_host_copy_s
+        # shared_programs is the reference's API only: each scheduler
+        # captures its own graphs, which read its own cache's addresses
         self.now_s = 0.0
         self._pending: List[Tuple[float, int, _Session]] = []
         self._arrivals: List[Tuple[float, int, _Session]] = []
@@ -101,11 +139,15 @@ class SlotScheduler(VirtualClockMixin):
 
         self._progs = SchedulerPrograms(
             model, paged=paged, steps_per_tick=steps_per_tick,
-            temperature=temperature)
+            temperature=temperature, kv_tier=kv_tier)
         self.paged = paged
         if prefix_cache and not paged:
             raise NotImplementedError(
                 "prefix sharing rides the paged block table")
+        if kv_tier != "none" and not paged:
+            raise NotImplementedError(
+                "the host KV tier spills pool pages; contiguous slots "
+                "have none to migrate")
         if paged:
             if dispatch_mode != "full_jit":
                 raise NotImplementedError(
@@ -123,14 +165,63 @@ class SlotScheduler(VirtualClockMixin):
             self.cache = model.init_cache(
                 n_slots, max_len, kv_dtype=kv_dtype, paged=True,
                 page_size=page_size, n_pages=n_pages)
-            self.store: Optional[PageStore] = PageStore(
-                n_slots=n_slots, max_blocks=self.max_blocks,
-                page_size=page_size, n_pages=n_pages,
-                prefix_cache=prefix_cache)
         else:
             self.cache = model.init_cache(n_slots, max_len,
                                           kv_dtype=kv_dtype, slotted=True)
+        # ---- fault tolerance (serving/faults.py; all default-off) ----
+        self.fault_injector = fault_injector
+        self.retry_budget = retry_budget
+        self.session_ttl_s = session_ttl_s
+        self.restore_patience = restore_patience
+        self.quarantine_budget = quarantine_budget
+        self.self_audit = self_audit
+        self.logit_screen = logit_screen
+        self._vocab = model.cfg.vocab_size
+        self._pressure_holds: List[Tuple[float, List[int]]] = []
+        self._pending_corrupts = 0
+        self._pending_aborts: List[str] = []
+        self._poison: List[str] = []
+        self.quarantines = 0
+        self.degraded_restores = 0
+        self.aborted_sessions = 0
+        self.failed_sessions = 0
+        self.expired_sessions = 0
+        self.audit_failures = 0
+        self.retry_backoff_s = 0.0
+        if paged:
+            store_kw = dict(n_slots=n_slots, max_blocks=self.max_blocks,
+                            page_size=page_size, n_pages=n_pages,
+                            prefix_cache=prefix_cache)
+            if kv_tier == "host":
+                def _save_fn(cache, pages):
+                    self._injected("save")
+                    return save_kv_blobs(self._progs.save_pages, cache,
+                                         pages, self.store.host)
+
+                def _restore_fn(cache, pages, blobs):
+                    self._injected("restore")
+                    return restore_kv_blobs(self._progs.restore_pages,
+                                            cache, pages, blobs)
+
+                self.store: Optional[PageStore] = TieredPageStore(
+                    host_pages=(host_pages if host_pages is not None
+                                else n_pages - 1),
+                    policy=get_policy(tier_policy),
+                    save_fn=_save_fn, restore_fn=_restore_fn,
+                    get_cache=lambda: self.cache,
+                    charge_cb=self._charge_migration,
+                    retry_budget=retry_budget,
+                    retry_cb=self._charge_retry,
+                    pin_memory=model.device.type == "cuda", **store_kw)
+                # the host rows, page-locked on the card, allocated now
+                self.store.host.allocate(tuple(
+                    self.cache[k][:, 0]
+                    for k in model._page_slab_keys(self.cache)))
+            else:
+                self.store = PageStore(**store_kw)
+        else:
             self.store = None
+        self.tiered = paged and self.store.kv_tier == "host"
 
         self.preemptions = 0
         self.step_kv_blocks: List[int] = []
@@ -236,8 +327,198 @@ class SlotScheduler(VirtualClockMixin):
         self.slots[slot] = None
         self.finished.append(sess)
         if self.paged:
+            self.store.drop_shadows(sess.sid)   # stale pre-spills die
             self._release_slot(slot, sess)
         self.events.append(("finish", sess.sid, slot))
+
+    # ------------------------------------------------- fault tolerance
+    @property
+    def _screen_logits(self) -> bool:
+        """The NaN/Inf (K=1) / token-range (horizon) screen on sampled
+        output: explicit ``logit_screen`` wins, else on exactly when an
+        injector is attached (resolved per call, so a soak can swap
+        injectors on a cached scheduler)."""
+        return (self.logit_screen if self.logit_screen is not None
+                else self.fault_injector is not None)
+
+    def _injected(self, which: str) -> None:
+        """Raise ``InjectedFault`` when the plan armed a copy failure
+        for this save/restore call (consulted per call — see above)."""
+        inj = self.fault_injector
+        if inj is not None and inj.take_copy_fail(which):
+            raise InjectedFault(f"injected {which} copy failure")
+
+    def _charge_retry(self, attempt: int) -> None:
+        """Virtual cost of one copy retry: exponential backoff in
+        launch-tax units, doubling per attempt — charged to the same
+        clock everything else pays, so chaos SLO numbers include it."""
+        dt = self.virtual_dispatch_s * (2 ** (attempt - 1))
+        self.now_s += dt
+        self.retry_backoff_s += dt
+
+    def _take_poison(self, sid: str) -> bool:
+        """Consume a pending logit poisoning aimed at ``sid`` (or at
+        anyone, target "")."""
+        for i, t in enumerate(self._poison):
+            if t == sid or t == "":
+                del self._poison[i]
+                if self.fault_injector is not None:
+                    self.fault_injector.mark("nan_logits")
+                return True
+        return False
+
+    def _bump_status(self, status: str) -> None:
+        self.aborted_sessions += status == "aborted"
+        self.failed_sessions += status == "failed"
+        self.expired_sessions += status == "expired"
+
+    def _abort_session(self, sid: str, status: str) -> bool:
+        """Terminally remove a session wherever it lives — resident,
+        waiting, or still queued in the arrival stream — freeing its
+        slot, pages, and host blobs.  Committed tokens are kept (the
+        result carries the prefix plus a non-ok ``status``).  False
+        when the session is unknown or already finished (a disconnect
+        racing completion is not an error)."""
+        for slot, sess in enumerate(self.slots):
+            if sess is not None and sess.sid == sid:
+                sess.status = status
+                self._bump_status(status)
+                self.events.append((status, sid, slot))
+                self._finish(slot, sess)
+                return True
+        for sess in self.waiting:
+            if sess.sid == sid:
+                self.waiting.remove(sess)
+                sess.status = status
+                sess.finished_tick = self.tick_count
+                self.finished.append(sess)
+                if self.paged:
+                    self.store.drop_shadows(sid)
+                    self.store.drop_parked(sid)
+                self._bump_status(status)
+                self.events.append((status, sid, -1))
+                return True
+        for queue in (self._arrivals, self._pending):
+            for entry in queue:
+                if entry[2].sid == sid:
+                    queue.remove(entry)
+                    if queue is self._arrivals:
+                        heapq.heapify(self._arrivals)
+                    sess = entry[2]
+                    sess.status = status
+                    sess.finished_tick = self.tick_count
+                    self.finished.append(sess)
+                    self._bump_status(status)
+                    self.events.append((status, sid, -1))
+                    return True
+        return False
+
+    def _poll_faults(self) -> None:
+        """Apply due fault-plan events and enforce the per-session TTL.
+        Runs right after arrival release each tick; a no-op without an
+        injector, TTL, or live pressure hold."""
+        inj = self.fault_injector
+        if inj is None and self.session_ttl_s is None \
+                and not self._pressure_holds:
+            return
+        # expire pressure holds: withheld pages return to the free list
+        # the moment the virtual clock passes the spike
+        if self._pressure_holds:
+            live = []
+            for expiry, pages in self._pressure_holds:
+                if self.now_s >= expiry:
+                    self.store.release(pages)
+                else:
+                    live.append((expiry, pages))
+            self._pressure_holds = live
+        if inj is not None:
+            for spec in inj.poll(self.now_s):
+                if spec.kind == "pool_pressure":
+                    if not self.paged:
+                        continue         # no pool to pressure
+                    got = self.store.alloc_free(
+                        min(spec.count, self.store.free_pages))
+                    if got:
+                        self._pressure_holds.append(
+                            (self.now_s + spec.duration_s, got))
+                        inj.mark("pool_pressure")
+                        self.events.append(("pressure", "", -1,
+                                            len(got)))
+                elif spec.kind == "blob_corrupt":
+                    self._pending_corrupts += spec.count
+                elif spec.kind == "nan_logits":
+                    self._poison.append(spec.target)
+                elif spec.kind == "abort":
+                    self._pending_aborts.append(spec.target)
+            # corruption bites whatever is parked NOW; pending damage
+            # waits for the next parked blob instead of going unfired
+            while self._pending_corrupts and self.tiered:
+                sid = self.store.corrupt_parked_blob()
+                if sid is None:
+                    break
+                self._pending_corrupts -= 1
+                inj.mark("blob_corrupt")
+                self.events.append(("corrupt", sid, -1))
+            if not self.tiered:
+                self._pending_corrupts = 0
+            if self._pending_aborts:
+                rest = []
+                for target in self._pending_aborts:
+                    if target:
+                        # a disconnect racing completion just drops
+                        if self._abort_session(target, "aborted"):
+                            inj.mark("abort")
+                        continue
+                    sid = next(
+                        (s.sid for s in self.slots if s is not None),
+                        None) or (self.waiting[0].sid if self.waiting
+                                  else None)
+                    if sid is None:
+                        rest.append(target)   # nobody live yet: retry
+                    else:
+                        self._abort_session(sid, "aborted")
+                        inj.mark("abort")
+                self._pending_aborts = rest
+        if self.session_ttl_s is not None:
+            overdue = [s for s in list(self.slots) + list(self.waiting)
+                       if s is not None
+                       and self.now_s - s.arrival_s > self.session_ttl_s]
+            for s in overdue:
+                self._abort_session(s.sid, "expired")
+
+    def _run_audit(self) -> None:
+        """Idle-tick self-audit of the page accounting; first damage
+        warns (an "audit" event), repeated damage fails the run closed
+        — continuing to serve on a corrupt allocator turns one broken
+        session into silently wrong streams for everyone."""
+        live = [p for s in self.slots if s is not None for p in s.pages]
+        issues = self.store.check(live)
+        if not issues:
+            return
+        self.audit_failures += 1
+        self.events.append(("audit", "; ".join(issues)[:200], -1))
+        if self.audit_failures > 1:
+            raise RuntimeError(
+                "page-accounting self-audit failed twice: "
+                + "; ".join(issues))
+
+    def _quarantine(self, slot: int, sess: _Session) -> None:
+        """Pull a lane whose sampled output failed the logit screen.
+        Paged sessions requeue and re-prefill from their committed
+        prefix (the poisoned step never committed, so recovery is
+        token-identical); past the quarantine budget — or on the
+        contiguous layout, which has no resume machinery — the session
+        fails closed with a terminal event."""
+        self.quarantines += 1
+        sess.quarantines += 1
+        self.events.append(("quarantine", sess.sid, slot))
+        if not self.paged or sess.quarantines > self.quarantine_budget:
+            sess.status = "failed"
+            self._bump_status("failed")
+            self.events.append(("failed", sess.sid, slot))
+            self._finish(slot, sess)
+            return
+        self._requeue(slot, sess)
 
     # ------------------------------------------------------ paged plumbing
     def _pages_for(self, n_tokens: int) -> int:
@@ -252,34 +533,53 @@ class SlotScheduler(VirtualClockMixin):
     def _sync_device(self, pos_always: bool = True) -> None:
         self.store.sync(self.cache, pos_always)
 
-    def _preempt(self, slot: int, sess: _Session) -> None:
-        """Requeue a session at the head of the queue to reclaim its
-        pages; it re-prefills its prompt and generated prefix on
-        re-admission.  Costs recompute, never correctness."""
+    def _requeue(self, slot: int, sess: _Session) -> None:
+        """Pull a resident session back to the head of the queue,
+        parking its full pages (tiered) or dropping them — the shared
+        prologue of preemption and quarantine.  Costs recompute (or
+        copies), never correctness."""
+        if self.tiered and self.store.policy.spill_parked \
+                and sess.pos >= self.page_size:
+            self.store.park(sess.sid, sess.pos // self.page_size,
+                            sess.pages, self.cache)
+        elif self.paged:
+            self.store.drop_shadows(sess.sid)
         self._release_slot(slot, sess)
         self.slots[slot] = None
         sess.slot = -1
         sess.prefilled = 0
         sess.prefill_seq = None
         sess.resume = True
+        sess.tier_waits = 0
         self.waiting.appendleft(sess)   # it was admitted before the waiters
+
+    def _preempt(self, slot: int, sess: _Session) -> None:
+        """Requeue a session to reclaim its pages; the host tier parks
+        full pages; the partial tail always re-prefills."""
+        self._requeue(slot, sess)
         self.preemptions += 1
         self.events.append(("preempt", sess.sid, slot))
 
     def _alloc_or_preempt(self, n: int, needy: _Session) -> Optional[List[int]]:
         """Allocate ``n`` pages, preempting one victim at a time until
         it fits (None if it still can't).  Victims: lowest-priority-
-        youngest first."""
+        youngest first (youngest-first when priority preemption is off)."""
         while True:
             got = self.store.alloc(n)
             if got is not None:
                 return got
-            victims = [((-s.priority, s.admit_seq), i, s)
-                       for i, s in enumerate(self.slots)
-                       if s is not None and s is not needy
-                       and (s.priority < needy.priority
-                            or (s.priority == needy.priority
-                                and s.admit_seq > needy.admit_seq))]
+            if self.priority_preemption:
+                victims = [((-s.priority, s.admit_seq), i, s)
+                           for i, s in enumerate(self.slots)
+                           if s is not None and s is not needy
+                           and (s.priority < needy.priority
+                                or (s.priority == needy.priority
+                                    and s.admit_seq > needy.admit_seq))]
+            else:
+                victims = [((0, s.admit_seq), i, s)
+                           for i, s in enumerate(self.slots)
+                           if s is not None and s is not needy
+                           and s.admit_seq > needy.admit_seq]
             if not victims:
                 return None
             _, vslot, vsess = max(victims)
@@ -416,42 +716,132 @@ class SlotScheduler(VirtualClockMixin):
             self.store.set_pos(slot, len(seq) - 1)
             self.prefix_tokens_saved += len(seq)
 
+    def _try_admit_tiered(self, slot: int) -> bool:
+        """Tier-aware admission of the queue head: restore parked (or
+        host-prefix-indexed) KV pages into fresh device pages instead
+        of re-prefilling.  The device prefix cache is consulted first —
+        blocks it covers alias and their parked blobs drop.  False when
+        the host tier has nothing or the page gate can't cover the
+        restore; the re-prefill admission then runs and stays the
+        liveness anchor.  Restored bytes are the originally written
+        bytes: the resumed stream is token-identical by construction."""
+        store, head = self.store, self.waiting[0]
+        seq = self._prefill_seq_for(head)
+        shared = store.match(seq)
+        k = len(shared)
+        n_parked = store.parked_blocks(head.sid)
+        if n_parked > k:
+            paths = None
+            n_restore = n_parked - k
+            covered = n_parked * self.page_size
+        else:
+            # host prefix index: extend the device match, capped one
+            # block short of the sequence so a fresh session keeps >= 1
+            # tail token to prefill (first sample needs its logits)
+            paths = store.host_match(seq, k,
+                                     (len(seq) - 1) // self.page_size)
+            if not paths:
+                return False
+            n_restore = len(paths)
+            covered = (k + n_restore) * self.page_size
+        if covered < len(seq):
+            tail = len(seq) - covered
+            first = (tail if self.prefill_chunk is None
+                     else min(self.prefill_chunk, tail))
+            need = self._pages_for(covered + first) - k
+        else:
+            need = n_restore + 1    # +1: first decode write headroom
+        if not store.can_cover(need, shared):
+            return False
+        store.retain(shared)        # pin BEFORE the restore allocation
+        got = store.alloc(n_restore)
+        if got is None:
+            store.release(shared)
+            raise RuntimeError("the tier gate did not cover the restore pages")
+        try:
+            if paths is None:
+                self.cache = store.take_parked(head.sid, k, got, self.cache)
+            else:
+                self.cache = store.restore_host_prefix(paths, got, self.cache)
+        except TierCopyError:
+            # degraded admission: the copy (or its checksum) failed past
+            # the retry budget.  Give every reservation back — device
+            # pages AND the prefix pin — drop the (possibly corrupt)
+            # parked copy, and fall through to the re-prefill admission
+            # THIS tick: token-identical by construction, no livelock.
+            store.release(got)
+            store.release(shared)
+            store.drop_parked(head.sid)
+            self.degraded_restores += 1
+            self.events.append(("degraded", head.sid, slot))
+            return False
+        self.waiting.popleft()
+        self._admit_paged(slot, head, seq, [])
+        if shared:
+            self.prefix_hits += 1
+        head.pages = list(shared) + got
+        self.store.map_pages(slot, 0, head.pages)
+        head.prefilled = covered
+        head.pos = covered
+        store.set_pos(slot, covered)
+        self.prefix_tokens_saved += covered
+        self._register_prefix(head)   # restored blocks become shareable
+        if covered == len(seq):
+            head.resume = False       # fully covered: decode directly
+        return True
+
     def _backfill_paged(self) -> None:
         """FIFO admission gated on free pages (head-of-line blocking is
-        deliberate — skip-ahead would starve long prompts).  The gate
-        charges only the UNMATCHED pages, counting reclaimable cached
-        pages as free — excluding the match itself, which is about to be
-        pinned."""
+        deliberate — skip-ahead would starve long prompts).  The host
+        tier gets first refusal; the ordinary gate charges only the
+        UNMATCHED pages, counting reclaimable cached pages as free —
+        excluding the match itself, which is about to be pinned."""
         for slot in range(self.n_slots):
             while self.slots[slot] is None and self.waiting:
-                head = self.waiting[0]
-                seq = self._prefill_seq_for(head)
-                shared = self.store.match(seq)
-                while True:
-                    matched = len(shared) * self.page_size
-                    if shared and matched >= len(seq):
-                        # fully cached: fresh needs 1 page (the CoW copy)
-                        # pinning shared[:-1]; resume pins the whole
-                        # match, +1 decode-write headroom
-                        resume = head.resume and head.tokens
-                        pinned = shared if resume else shared[:-1]
-                        need = 1
-                    else:
-                        pinned = shared
-                        tail = len(seq) - matched
-                        first = (tail if self.prefill_chunk is None
-                                 else min(self.prefill_chunk, tail))
-                        need = self._pages_for(matched + first) - len(shared)
-                    if self.store.can_cover(need, pinned):
-                        break
-                    if not shared:
-                        return      # gate: wait for reclaim
-                    # shrink the match: its dropped tail pages become
-                    # reclaimable fuel for this admission (degrades to
-                    # the unshared gate = liveness)
-                    shared = shared[:-1]
-                self._admit_paged(slot, self.waiting.popleft(), seq, shared)
-                sess = self.slots[slot]
+                if self.tiered and self._try_admit_tiered(slot):
+                    sess = self.slots[slot]
+                else:
+                    head = self.waiting[0]
+                    if self.tiered and self.restore_patience > 0 \
+                            and head.tier_waits < self.restore_patience \
+                            and self.store.parked_blocks(head.sid) > 0:
+                        # restore-gate patience: the parked copy exists
+                        # but the page gate can't cover it yet — hold a
+                        # bounded number of ticks before the re-prefill
+                        # admission supersedes (and discards) the copy
+                        head.tier_waits += 1
+                        return
+                    seq = self._prefill_seq_for(head)
+                    shared = self.store.match(seq)
+                    while True:
+                        matched = len(shared) * self.page_size
+                        if shared and matched >= len(seq):
+                            # fully cached: fresh needs 1 page (the CoW
+                            # copy) pinning shared[:-1]; resume pins the
+                            # whole match, +1 decode-write headroom
+                            resume = head.resume and head.tokens
+                            pinned = shared if resume else shared[:-1]
+                            need = 1
+                        else:
+                            pinned = shared
+                            tail = len(seq) - matched
+                            first = (tail if self.prefill_chunk is None
+                                     else min(self.prefill_chunk, tail))
+                            need = (self._pages_for(matched + first)
+                                    - len(shared))
+                        if self.store.can_cover(need, pinned):
+                            break
+                        if not shared:
+                            return      # gate: wait for reclaim
+                        # shrink the match: its dropped tail pages
+                        # become reclaimable fuel for this admission
+                        # (degrades to the unshared gate = liveness)
+                        shared = shared[:-1]
+                    self._admit_paged(slot, self.waiting.popleft(), seq,
+                                      shared)
+                    # re-prefill admission supersedes any parked copy
+                    self.store.drop_parked(head.sid)
+                    sess = self.slots[slot]
                 if not sess.decoding and not self._prefill_next_chunk(slot,
                                                                       sess):
                     raise RuntimeError("gated admission must have its first "
@@ -546,19 +936,36 @@ class SlotScheduler(VirtualClockMixin):
         return min(want, len(sess.pages) * self.page_size - sess.pos)
 
     def tick(self) -> List[Event]:
-        """One iteration: continue chunked prefills, backfill, one batched
-        decode dispatch, evict completed sessions."""
+        """One iteration: continue chunked prefills, backfill, tier idle
+        work, one batched decode dispatch, evict completed sessions."""
         n_before = len(self.events)
+        steps0, pf0 = self.decode_steps, self.prefill_tokens
         self._release_arrivals()
+        self._poll_faults()
         if self.paged:
             for slot, sess in enumerate(self.slots):
                 if sess is not None and not sess.decoding:
                     self._prefill_next_chunk(slot, sess)
         self._backfill()
+        if self.tiered and not self.waiting and not self._arrivals:
+            # no admission pressure: let the policy pre-migrate
+            # (LookAheadSpill shadow-copies the predicted victim)
+            self.store.policy.idle_tick(self)
+        if self.paged and self.self_audit and not self.waiting \
+                and all(s is None for s in self.slots):
+            self._run_audit()     # idle tick: audit the page accounting
         if self.steps_per_tick == 1:
             self._decode_tick_single()
         else:
             self._decode_tick_horizon(self._tick_horizon())
+        if self._pressure_holds and self.decode_steps == steps0 \
+                and self.prefill_tokens == pf0 \
+                and len(self.events) == n_before:
+            # a pressure spike can gate every admission with nothing
+            # resident and no arrival to fast-forward to: jump the clock
+            # to the next hold expiry so the spike passes
+            self.now_s = max(self.now_s,
+                             min(e for e, _ in self._pressure_holds))
         self.tick_count += 1
         return self.events[n_before:]
 
@@ -595,7 +1002,23 @@ class SlotScheduler(VirtualClockMixin):
         dt = t2 - t0
         self.decode_steps += 1
         self._charge(1)
+        screened: set = set()
+        if self._screen_logits:
+            # NaN/Inf screen on this step's logits — a writable HOST
+            # copy: injected poison lands here, device state stays clean
+            # staticcheck: disable=hot-sync -- NaN screen needs a writable host copy; only taken when --screen-logits is on (chaos runs)
+            last = np.array(logits[:, -1].float().cpu(), np.float32)
+            for slot, sess in active:
+                if self._poison and self._take_poison(sess.sid):
+                    last[slot] = np.nan
+                if not np.isfinite(last[slot]).all():
+                    screened.add(slot)
         for slot, sess in active:
+            if slot in screened:
+                # poisoned step never commits: quarantine the lane,
+                # other lanes proceed untouched
+                self._quarantine(slot, sess)
+                continue
             sess.pos += 1
             if self.paged:
                 self.store.mirror_pos(slot, sess.pos)
@@ -651,8 +1074,16 @@ class SlotScheduler(VirtualClockMixin):
             eos_id=self.eos_id)
         t1 = time.perf_counter()
         # staticcheck: disable=hot-sync -- the ONE deliberate macro-tick sync: up to K*slots sampled tokens in one transfer
-        tok_mat = np.asarray(tok_mat.cpu())
+        tok_mat = np.array(tok_mat.cpu())   # a writable host copy
         t2 = time.perf_counter()
+        screen = self._screen_logits
+        if screen:
+            for slot, sess in active:
+                if self._poison and self._take_poison(sess.sid):
+                    # out-of-vocab sentinel on the lane's whole horizon:
+                    # the range check below quarantines at step 0, so no
+                    # poisoned token ever commits
+                    tok_mat[slot, :] = self._vocab
         self.host_dispatch_s += t1 - t0
         self.host_sync_s += t2 - t1
         dt = t2 - t0
@@ -671,6 +1102,11 @@ class SlotScheduler(VirtualClockMixin):
                 if slot in done or j >= plan[slot]:
                     continue
                 tok = int(tok_mat[slot, j])
+                if screen and not 0 <= tok < self._vocab:
+                    # screened lane: nothing from this horizon commits
+                    done.add(slot)
+                    self._quarantine(slot, sess)
+                    continue
                 sess.pos += 1
                 if self.paged:
                     self.store.mirror_pos(slot, sess.pos)
@@ -710,6 +1146,17 @@ class SlotScheduler(VirtualClockMixin):
         blk0 = len(self.step_kv_blocks) if self.paged else 0
         pf0, ph0 = self.prefill_tokens, self.prefix_hits
         ps0, cw0 = self.prefix_tokens_saved, self.cow_copies
+        st = self.store if self.paged else PageStore  # class-level zeros
+        sp0, pr0 = st.pages_spilled, st.pages_restored
+        tr0, hp0 = st.tier_restores, st.host_prefix_hits
+        sr0, rr0 = st.save_retries, st.restore_retries
+        cb0 = st.corrupt_blobs
+        qa0, dg0 = self.quarantines, self.degraded_restores
+        ab0, fl0 = self.aborted_sessions, self.failed_sessions
+        ex0, au0 = self.expired_sessions, self.audit_failures
+        rb0 = self.retry_backoff_s
+        inj = self.fault_injector
+        fired0 = collections.Counter(inj.fired) if inj else None
         limit = self.max_ticks
         if limit is None:
             def ticks_for(s: _Session) -> int:
@@ -727,7 +1174,12 @@ class SlotScheduler(VirtualClockMixin):
             budget += sum(ticks_for(s)
                           for s in self.slots if s is not None)
             # + one release tick per trace arrival
-            limit = 4 * budget + len(self._pending) + len(self._arrivals) + 16
+            limit = (4 + self.restore_patience) * budget \
+                + len(self._pending) + len(self._arrivals) + 16
+            if self.fault_injector is not None:
+                # chaos re-prefills (quarantine, degraded restores) and
+                # pressure-spike stall ticks eat extra headroom
+                limit += 4 * budget + 64
         t0 = time.perf_counter()
         while self.waiting or self._pending or self._arrivals \
                 or any(s is not None for s in self.slots):
@@ -735,6 +1187,11 @@ class SlotScheduler(VirtualClockMixin):
             if self.tick_count - tick0 > limit:
                 raise RuntimeError(
                     f"scheduler made no progress within {limit} ticks")
+        if self._pressure_holds:
+            # a hold outliving the run would leak pool pages
+            for _, pages in self._pressure_holds:
+                self.store.release(pages)
+            self._pressure_holds = []
         wall = time.perf_counter() - t0
         n_tokens = sum(len(s.tokens) for s in self.finished[fin0:])
         sessions = {s.sid: s.to_result() for s in self.finished}
@@ -762,4 +1219,29 @@ class SlotScheduler(VirtualClockMixin):
             now_s=self.now_s,
             arrivals=self.arrivals_released - arr0,
             adaptive_k=self.adaptive_k,
-            horizon_hist=dict(self.horizon_hist - hist0))
+            horizon_hist=dict(self.horizon_hist - hist0),
+            kv_tier=(self.store.kv_tier if self.paged else "none"),
+            tier_policy=(self.store.policy.name
+                         if self.tiered else None),
+            pages_spilled=st.pages_spilled - sp0,
+            pages_restored=st.pages_restored - pr0,
+            tier_restores=st.tier_restores - tr0,
+            host_prefix_hits=st.host_prefix_hits - hp0,
+            host_pages_used=(self.store.host_used if self.paged else 0),
+            fault_counts=(
+                {k: v for k, v in sorted(
+                    (collections.Counter(inj.fired) - fired0).items())
+                 if v} if inj else {}),
+            faults_injected=(
+                sum((collections.Counter(inj.fired) - fired0).values())
+                if inj else 0),
+            save_retries=st.save_retries - sr0,
+            restore_retries=st.restore_retries - rr0,
+            degraded_restores=self.degraded_restores - dg0,
+            corrupt_blobs=st.corrupt_blobs - cb0,
+            quarantines=self.quarantines - qa0,
+            aborted_sessions=self.aborted_sessions - ab0,
+            failed_sessions=self.failed_sessions - fl0,
+            expired_sessions=self.expired_sessions - ex0,
+            audit_failures=self.audit_failures - au0,
+            retry_backoff_s=self.retry_backoff_s - rb0)

@@ -2,8 +2,8 @@
 
 A copy of ``repro.serving.session`` (framework-neutral: numpy only),
 held equal in behaviour to it by ``tests/test_torch_serving_copies.py``.
-Every field is kept, the host-tier and fault counters included; the
-port's scheduler leaves those at their defaults until their slices.
+Every field is kept, the host-tier and fault counters included, and
+the port's scheduler fills them as the reference's does.
 """
 from __future__ import annotations
 

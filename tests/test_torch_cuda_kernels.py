@@ -522,6 +522,125 @@ def test_paged_scheduler_graph_replays_equal_plain_calls(cuda, kv_quant, K):
     assert replayed == plain_launches
 
 
+def _tier_requests(cfg):
+    from repro_torch.serving import SessionRequest
+    return [SessionRequest(f"s{i}", (torch.arange(6 + 3 * i) * (i + 5)
+                                     % cfg.vocab_size).numpy(), 6 + i % 3)
+            for i in range(5)]
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_kv_blob_roundtrip_on_cuda(cuda, kv_dtype):
+    """Pages saved from a paged pool on the card land in the host pool's
+    page-locked rows (a put adopts them), come back bit-equal into other
+    pages after the pool was clobbered, codes and scales alike; the
+    pools keep their tensors; without a pool the blobs are page-locked
+    too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.memory import (HostPagePool, restore_kv_blobs,
+                                            save_kv_blobs)
+    cfg = get_config("qwen2.5-3b").reduced()
+    model = Model(cfg, device=cuda)
+    cache = model.init_cache(2, 64, kv_dtype=kv_dtype, paged=True,
+                             page_size=16, n_pages=12)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    keys = model._page_slab_keys(cache)
+    for key in keys:
+        t = cache[key]
+        t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=cuda)
+                if t.dtype == torch.int8 else
+                torch.randn(t.shape, generator=g, device=cuda))
+    orig = {k: cache[k].clone() for k in keys}
+    ptrs = {k: cache[k].data_ptr() for k in keys}
+    src, dst = [2, 3, 4, 9, 7], [5, 6, 8, 10, 11]
+    pool = HostPagePool(8, pin_memory=True)
+    blobs = save_kv_blobs(model.save_kv_pages, cache, src, pool)
+    assert all(c.is_pinned() and not c.is_cuda for b in blobs for c in b)
+    handles = [pool.put(b, pinned=True) for b in blobs]
+    assert [pool.get(h)[0].data_ptr() for h in handles] == \
+        [b[0].data_ptr() for b in blobs]
+    for key in keys:
+        cache[key][:, dst].zero_()
+    restore_kv_blobs(model.restore_kv_pages, cache, dst,
+                     [pool.get(h) for h in handles])
+    torch.cuda.synchronize()
+    for key in keys:
+        assert cache[key].data_ptr() == ptrs[key]
+        assert torch.equal(cache[key][:, dst], orig[key][:, src]), key
+        assert torch.equal(cache[key][:, src], orig[key][:, src]), key
+    fresh = save_kv_blobs(model.save_kv_pages, cache, src)
+    assert all(c.is_pinned() for b in fresh for c in b)
+    assert all(torch.equal(a, b) for x, y in zip(fresh, blobs)
+               for a, b in zip(x, y))
+
+
+@pytest.mark.parametrize("kv_quant,K", [("none", 1), ("int8", 4)])
+def test_tiered_scheduler_graph_replays_equal_plain_calls(cuda, kv_quant, K):
+    """The paged scheduler with the host tier ("spill"): a preempted
+    session parks its full pages in page-locked host rows and is restored
+    into other pages, in place; the decode graph replayed after the
+    restore gives the same event log as plain calls, and both pools
+    balance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import SlotScheduler
+    cfg = get_config("qwen2.5-3b").reduced().replace(dtype="float32")
+    model = Model(cfg, decode_backend="cuda", device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    runs = []
+    for capture in (True, False):
+        sched = SlotScheduler(model, params, n_slots=2, max_len=40, paged=True,
+                              page_size=8, n_pages=1 + 5, steps_per_tick=K,
+                              kv_dtype=torch.int8 if kv_quant == "int8" else None,
+                              kv_tier="host", tier_policy="spill")
+        sched._progs.capture = capture
+        for r in _tier_requests(cfg):
+            sched.submit(r)
+        runs.append((sched, sched.run()))
+    (sched, graph), (_, plain) = runs
+    assert graph.events == plain.events
+    assert graph.step_cache_size == 1
+    assert graph.tier_restores >= 1 and graph.pages_restored >= 1
+    assert all(c.is_pinned() for c in sched.store.host._slabs)
+    sched.store.flush_host()
+    assert sched.store.allocator.n_free == sched.store.n_pages - 1
+    assert sched.store.host_used == 0
+
+
+def test_injected_save_fail_past_the_budget_balances_both_pools(cuda):
+    """Every save fails past a retry budget of 1: parks degrade to
+    re-prefill, the streams equal the fault-free run's, and the device
+    pool and the host pool balance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import (FaultInjector, FaultPlan, FaultPlanConfig,
+                                     FaultSpec, SlotScheduler)
+    cfg = get_config("qwen2.5-3b").reduced().replace(dtype="float32")
+    model = Model(cfg, decode_backend="cuda", device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    plan = FaultPlan(FaultPlanConfig(), (FaultSpec("save_fail", 0.0, "", 50),))
+    runs = []
+    for inj in (None, FaultInjector(plan)):
+        sched = SlotScheduler(model, params, n_slots=2, max_len=40, paged=True,
+                              page_size=8, n_pages=1 + 5, kv_tier="host",
+                              fault_injector=inj, retry_budget=1,
+                              self_audit=inj is not None)
+        for r in _tier_requests(cfg):
+            sched.submit(r)
+        runs.append((sched, sched.run()))
+    (_, clean), (sched, chaos) = runs
+    assert chaos.save_retries >= 1 and chaos.fault_counts.get("save_fail", 0) >= 2
+    assert sched.store.park_fails >= 1 and chaos.tier_restores == 0
+    for sid, s in clean.sessions.items():
+        assert chaos.sessions[sid].status == "ok"
+        assert s.tokens.tolist() == chaos.sessions[sid].tokens.tolist(), sid
+    sched.store.flush_host()
+    assert sched.store.allocator.n_free == sched.store.n_pages - 1
+    assert sched.store.host_used == 0 and chaos.audit_failures == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,parametric,strided", [
     ((1, 2560), True, False), ((512, 3584), True, False),

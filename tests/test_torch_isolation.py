@@ -31,6 +31,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         ROOT / "scripts" / "ssd_rmsnorm_probe.py",
         ROOT / "scripts" / "dispatch_ab_probe.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"serving/faults.py", "serving/trace.py", "serving/memory/policy.py",
+            "serving/memory/tiers.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []

@@ -1,19 +1,27 @@
 """The port's copies of the framework-neutral serving modules behave as
 the JAX package's originals: the page allocator and the prefix index
 under the same seeded random walks, the session dataclasses field by
-field, and the virtual clock's K ladder and adaptive horizon pick."""
+field, the virtual clock's K ladder and adaptive horizon pick, and the
+fault-plan, trace and tier-policy modules, whose code is the
+reference's statement for statement (only the docstring and the
+imports differ)."""
+import ast
 import dataclasses
+import inspect
 import random
 
 import numpy as np
 import pytest
 
+from repro.serving import faults as jax_faults
 from repro.serving import session as jax_session
+from repro.serving import trace as jax_trace
 from repro.serving import vclock as jax_vclock
 from repro.serving.memory import allocator as jax_allocator
+from repro.serving.memory import policy as jax_policy
 from repro.serving.memory import prefix as jax_prefix
-from repro_torch.serving import session, vclock
-from repro_torch.serving.memory import allocator, prefix
+from repro_torch.serving import faults, session, trace, vclock
+from repro_torch.serving.memory import allocator, policy, prefix
 
 
 def _walk(mods, seed, steps=300, n_pages=24, page=4):
@@ -124,3 +132,75 @@ def test_virtual_clock_matches(seed):
             st = _Clock(mod, random.Random(seed * 100 + i))
             picks.append(mod.VirtualClockMixin._tick_horizon(st))
         assert picks[0] == picks[1]
+
+
+def _body(mod):
+    """The module's statements without its docstring and imports."""
+    tree = ast.parse(inspect.getsource(mod))
+    body = [n for n in tree.body
+            if not isinstance(n, (ast.Import, ast.ImportFrom))
+            and not (isinstance(n, ast.Expr) and isinstance(n.value, ast.Constant))]
+    return [ast.dump(n) for n in body]
+
+
+@pytest.mark.parametrize("mod,ref", [(faults, jax_faults), (trace, jax_trace),
+                                     (policy, jax_policy)],
+                         ids=["faults", "trace", "policy"])
+def test_copied_modules_match_statement_for_statement(mod, ref):
+    assert _body(mod) == _body(ref)
+
+
+def test_fault_and_trace_dataclasses_match():
+    for mod, ref, names in (
+            (faults, jax_faults, ("FaultSpec", "FaultPlanConfig", "FaultPlan")),
+            (trace, jax_trace, ("SessionClass", "TraceConfig", "Trace"))):
+        for name in names:
+            a = [(f.name, str(f.type), repr(f.default))
+                 for f in dataclasses.fields(getattr(mod, name))]
+            b = [(f.name, str(f.type), repr(f.default))
+                 for f in dataclasses.fields(getattr(ref, name))]
+            assert a == b, name
+    assert faults.KINDS == jax_faults.KINDS
+
+
+class _Sess:
+    def __init__(self, sid, priority, admit_seq, pos, pages):
+        self.sid, self.priority, self.admit_seq = sid, priority, admit_seq
+        self.pos, self.pages = pos, pages
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_lookahead_policy_picks_the_same_shadows(seed):
+    """``LookAheadSpill.idle_tick`` on the same residents asks both stores
+    for the same victim and cold blocks, tick after tick."""
+    calls = []
+    for mod in (policy, jax_policy):
+        rnd = random.Random(seed)
+        log = []
+
+        class Store:
+            page_size = 4
+            shadows: set = set()
+
+            def has_shadow(self, sid, blk):
+                return (sid, blk) in self.shadows
+
+            def shadow_spill(self, sid, blks, pages, cache):
+                log.append((sid, list(blks), list(pages)))
+                self.shadows |= {(sid, b) for b in blks}
+
+        class Sched:
+            store = Store()
+            cache = None
+            slots = [_Sess(f"s{i}", rnd.randint(0, 2), rnd.randint(0, 9),
+                           rnd.randint(8, 30), list(range(10 * i, 10 * i + 8)))
+                     for i in range(3)] + [None]
+
+        pol = mod.get_policy("lookahead")
+        for _ in range(6):
+            pol.idle_tick(Sched)
+        assert [mod.get_policy(n).name for n in
+                ("prefer-device", "spill", "lookahead")] == \
+            ["prefer-device", "spill", "lookahead"]
+        calls.append(log)
+    assert calls[0] == calls[1] and calls[0]
