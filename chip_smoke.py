@@ -12,15 +12,16 @@ Phases, in order; each raises on failure and nothing catches:
  2. decode-attention kernel against its plain version, bf16 and f32, on
     the qwen2.5-7b decode shape and on ragged, per-sequence-mask (one row
     fully masked), MHA, G=4, G=8, B=3 and sparse-mask (whole splits
-    masked, G=16, hd 32) shapes, and at the first decode step of both
-    main paths that run it (qwen2.5-7b and zamba2-1.2b's shared block,
-    S=2081); each case logs its path (``ops.path_for``: mma for bf16,
+    masked, G=16, hd 32) shapes, and at the first decode step of the
+    main paths that run it (qwen2.5-7b; zamba2-1.2b's shared block and
+    musicgen-large, Hq=Hkv=32 hd 64; qwen2-moe-a2.7b, Hq=Hkv=16;
+    qwen2-vl-2b, Hq 12 Hkv 2 (G=6); S=2081); each case logs its path (``ops.path_for``: mma for bf16,
     one tensor-core launch; cuda_core for f32), two calls must be
     bit-equal, and NaN written into every masked slot's K/V row must
     leave the output bit-equal (and so within tolerance of the plain
     version on the clean cache); ptxas' registers and spills of
     ``decode_attention_mma``; times of the kernel, the plain version and
-    ``F.scaled_dot_product_attention`` (timed only) at both main paths'
+    ``F.scaled_dot_product_attention`` (timed only) at the four main-path
     shapes.
  3. int4-matmul kernel against its plain version at the qwen2.5-7b layer
     shapes, M=1 and M=4 (the GEMV: batch-1 decode and the paged step's 4
@@ -34,7 +35,10 @@ Phases, in order; each raises on failure and nothing catches:
     back to back between one event pair, L2 flushed once, as a step meets
     them) and the wrapper's host time per call (196 calls, not
     synchronised); the count of HGMMA instructions in the built library
-    (``cuobjdump --dump-sass``) must not be 0.
+    (``cuobjdump --dump-sass``) must not be 0.  The GEMV also at the 2-D
+    int4 shapes of a qwen2-moe-a2.7b layer (wq/wk/wv/wo 2048x2048, the
+    shared experts' 2048x5632 and 5632x2048), M=1, bf16 and f32, two
+    calls bit-equal, timed beside ``torch.matmul``.
  4. paged-decode-attention kernel against its plain version in bf16, f32
     and int8 KV at the paged serving shape (4 slots of ~2100 live tokens,
     page 16, G=7, hd 128) and on ragged lengths with a length-0 lane at
@@ -44,13 +48,14 @@ Phases, in order; each raises on failure and nothing catches:
     registers and spills of the mma kernel; times of the kernel, the
     plain version and gather + ``F.scaled_dot_product_attention`` (timed
     only), bf16 and int8.
- 5. RMSNorm kernel against its plain version, bf16 and f32, D in {2048,
-    2560, 3584, 4096, 5120} x R in {1, 4, 512, 2048} (every width and row
-    count of the main paths), with and without w, and a strided
+ 5. RMSNorm kernel against its plain version, bf16 and f32, D in {1536,
+    2048, 2560, 3584, 4096, 5120} x R in {1, 4, 512, 2048} (every width and
+    row count of the main paths), with and without w, and a strided
     slice read in place; bf16 output within one bf16 spacing of the plain
     version's; ptxas' registers and spills of ``rmsnorm_kernel``; times
     of the kernel (with its plan, ``ops.norm_plan``), the plain version
-    and ``F.rms_norm`` (timed only) at the main paths' rows; at D=2560
+    and ``F.rms_norm`` (timed only) at the main paths' rows (D=1536 too,
+    qwen2-vl-2b's width, R 1 and 2048); at D=2560
     also the profiler's device time per call and the time per call back
     to back with L2 cold (129 decode rows, or 8 prompts of 2048 rows).
  6. SSD-update kernel against its plain version with f32 and bf16
@@ -88,6 +93,13 @@ Phases, in order; each raises on failure and nothing catches:
     2 and the self-audit: sessions that end ok keep their streams, the
     others a prefix of it, every token lies in the vocabulary, the pools
     balance; the counters the plan fired are logged.
+9c. the moe, vlm and audio families inside the real path, card against
+    CPU: qwen2-moe-a2.7b (all 60 experts), qwen2-vl-2b and musicgen-large
+    at full width with 2 layers, f32, weights drawn once on the CPU and
+    copied to the card; prompts of 64 tokens (vlm: bf16 embeddings with
+    t/h/w positions that differ; audio: 4 codebooks); 16 greedy tokens
+    must be identical and the first-step logits agree within 1e-4 x
+    max|logit|.
 10. the batch-1 main path at full width: qwen2.5-7b, 28 layers, bf16,
     random weights drawn on the card; ``DecodeEngine`` serves the step
     as one captured CUDA graph: one warm-up request of each loop at the
@@ -171,19 +183,34 @@ Phases, in order; each raises on failure and nothing catches:
     on and off, with ``slo_report``'s TTFT and per-token p50/p95/p99 and
     goodput under the SLO.  Its numbers go on a ``{"host_tier": ...}``
     line.
-17. the kernels line: one JSON object with every ported kernel's
+17. the moe, vlm and audio families at full width (bf16, random weights
+    drawn on the card), through the engine's graph step with phase 10's
+    requests: qwen2-moe-a2.7b (24 layers, 60 experts top-4 + shared):
+    24 decode attentions and 49 RMSNorms per decode step, streamed =
+    fused tokens, first-step logits cuda vs sdpa, graph and eager p50,
+    R_floor against ``floor_cell`` (the active set) and the weight bytes
+    ``tree_weight_traffic`` charges, device time per step, prefill wall;
+    the same model under ``int4_fused`` (one request; kernel 3 7 x 24
+    times per step); its paged serving (phase 12's 8 sessions through 4
+    slots, bf16 KV, K=1: full budgets, one graph, 24 paged kernels per
+    device step; p50 per token, tok/s); qwen2-vl-2b (28 layers, bf16
+    embeddings with t/h/w positions) and musicgen-large (48 layers,
+    tokens (1, 2048, 4), output (1, 32, 4)) as qwen2-moe's batch-1 cell.
+    Its numbers go on a ``{"families": ...}`` line.
+18. the kernels line: one JSON object with every ported kernel's
     numbers (all five: no TPU kernel is left to port; ``device_us`` and
     ``b2b_us`` for kernels 4 and 5, null for the others); ``launches`` sums
     the main paths that run the kernel and ``launches_by_path`` names
     each path's count (the tiered cells of phase 16 included); the int4
     row adds the M=2048 sums (``prefill_*``) and the prefill's launches
     and walls.
-18. last line: ``{"ok": true, "device": {...}}``.
+19. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only kernels
 
 runs phases 1-6 only and prints the kernels line (launches null) without
-the ``ok`` line: the quick call for tuning a kernel.
+the ``ok`` line: the quick call for tuning a kernel.  ``--only families``
+runs phases 1, 9c and 17 only (no kernels line, no ``ok`` line).
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Times are CUDA-event medians of 30 runs
@@ -193,6 +220,7 @@ tensor cores).
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -354,8 +382,12 @@ def check_decode_attention(dev, timer):
          torch.arange(1000)[None, :] < torch.tensor([[1000], [517], [1]])),
         ("sparse mask, 1200 masked slots in a run (empty splits), G=16 hd 32", 2, 32, 2,
          32, S_main, holes),
-        ("zamba2-1.2b shared block: S=2081, first decode step", 1, 32, 32, 64,
+        ("zamba2-1.2b shared block and musicgen-large: S=2081, first decode step",
+         1, 32, 32, 64, S_main, torch.arange(S_main) <= PROMPT),
+        ("qwen2-moe-a2.7b (Hq=Hkv=16): S=2081, first decode step", 1, 16, 16, 128,
          S_main, torch.arange(S_main) <= PROMPT),
+        ("qwen2-vl-2b (G=6): S=2081, first decode step", 1, 12, 2, 128, S_main,
+         torch.arange(S_main) <= PROMPT),
         ("main path: S=2081, first decode step", 1, 28, 4, 128, S_main,
          torch.arange(S_main) <= PROMPT),
     ]
@@ -391,9 +423,9 @@ def check_decode_attention(dev, timer):
                 raise AssertionError(f"decode_attention {label} {dtype} disagrees")
             del q, k, v, m
 
-    # times at both main paths' shapes (bf16, first decode step)
+    # times at the main paths' shapes (bf16, first decode step)
     at = {}
-    for label, B, Hq, Hkv, hd, S, mask in cases[-2:]:
+    for label, B, Hq, Hkv, hd, S, mask in cases[-4:]:
         q, k, v, m = attention_case(dev, torch.bfloat16, B, Hq, Hkv, hd, S, mask, 99)
         out = ops.decode_attention(q, k, v, m)
         err, _ = rel_err(out, ref.decode_attention_ref(q, k, v, m))
@@ -418,11 +450,14 @@ def check_decode_attention(dev, timer):
                        shape=f"bf16 B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S}, "
                              f"{n_valid} valid")
         del q, k, v, m
-    main, zamba = at[4], at[32]
+    main = at[4]
+    extra = {f"{arch}_{k}": v for arch, hkv in (("zamba2", 32), ("qwen2_moe", 16),
+                                                ("qwen2_vl", 2))
+             for k, v in at[hkv].items()}
     return dict(name="decode_attention", route="cuda", path="mma",
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention/decode_attention.py:64",
-                **main, **{f"zamba2_{k}": v for k, v in zamba.items()})
+                **main, **extra)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -529,6 +564,7 @@ def check_int4_matmul(dev, timer):
             f"{t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%})"
             + (f", read of the same bytes {t['read_ms']:.4f} ms" if gemv else ""))
     layer, host_us = gemv_layer(dev, timer, ops)
+    moe = moe_gemv_layer(dev, timer, ops, ref)
     dec, m4, pre = totals[1], totals[4], totals[2048]
     return dict(name="int4_matmul", route="cuda",
                 source="src/repro_torch/csrc/int4_matmul.cu",
@@ -544,12 +580,63 @@ def check_int4_matmul(dev, timer):
                 prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
                 prefill_bound_ms=pre["bound_ms"], prefill_bound_by="operations",
                 prefill_library_ms=pre["library_ms"],
-                prefill_m512_ms=totals[512]["ms"],
+                prefill_m512_ms=totals[512]["ms"], **moe,
                 shape="sum of the 7 qwen2.5-7b layer matmuls at M=1, bf16 (the "
                       "GEMV); gemv_m4_*: the same at M=4; gemv_layer_ms: the 7 "
                       "back to back, L2 flushed once; read_ms: torch.sum over "
                       "the same packed and scale bytes; prefill_*: M=2048 "
-                      "(wgmma path)")
+                      "(wgmma path); qwen2_moe_*: the 7 int4 matmuls of a "
+                      "qwen2-moe-a2.7b layer (attention and shared experts) at M=1")
+
+
+MOE_LAYER = [("wq", 2048, 2048), ("wk", 2048, 2048), ("wv", 2048, 2048),
+             ("wo", 2048, 2048), ("shared gate", 2048, 5632),
+             ("shared up", 2048, 5632), ("shared down", 5632, 2048)]
+
+
+def moe_gemv_layer(dev, timer, ops, ref):
+    """The GEMV at the 2-D int4 shapes of a qwen2-moe-a2.7b layer (its
+    attention and shared experts; the expert stacks are dequantised as
+    in the reference), M=1, bf16 and f32 against the plain version, two
+    calls bit-equal; bf16 times summed over the layer."""
+    from repro_torch.quant import QuantizedTensor, dequantize
+    t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, K, N) in enumerate(MOE_LAYER):
+            x, packed, scales = int4_case(dev, dtype, 1, K, N, 700 + i)
+            before = ops.launches
+            out = ops.int4_matmul(x, packed, scales, group=128)
+            again = ops.int4_matmul(x, packed, scales, group=128)
+            torch.cuda.synchronize()
+            err, rel = rel_err(out, ref.int4_matmul_ref(x, packed, scales, 128))
+            ok = (rel <= TOL[dtype] and ops.launches == before + 2
+                  and torch.equal(again, out) and ops.path_for(1, dtype) == "gemv")
+            line = (f"  {str(dtype)[6:]:8s} qwen2-moe {name} M=1 K={K} N={N} "
+                    f"(gemv): max_abs_err {err:.3g}, repeat bit-equal "
+                    f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                log(line)
+                raise AssertionError(f"int4_matmul qwen2-moe {name} {dtype} disagrees")
+            t["err"] = max(t["err"], err)
+            if dtype != torch.bfloat16:
+                log(line)
+                continue
+            w = dequantize(QuantizedTensor(packed, scales, 4, "fused"), torch.bfloat16)
+            ms = timer(lambda: ops.int4_matmul(x, packed, scales, group=128))
+            plain_ms = timer(lambda: ref.int4_matmul_ref(x, packed, scales, 128))
+            lib_ms = timer(lambda: torch.matmul(x, w))
+            nbytes = x.numel() * 2 + packed.numel() + scales.numel() * 4 + N * 2
+            b_ms, _ = bound_ms(nbytes, 2 * K * N, torch.bfloat16)
+            log(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"torch.matmul(bf16 dequantised) {lib_ms:.4f} ms, bound {b_ms:.4f} ms")
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("bound_ms", b_ms)):
+                t[key] += val
+            del w
+    log(f"  one qwen2-moe layer's 7 int4 GEMVs at M=1 (bf16): kernel {t['ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f} ms, torch.matmul {t['library_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%})")
+    return {f"qwen2_moe_{k}": v for k, v in t.items()}
 
 
 def gemv_layer(dev, timer, ops):
@@ -731,8 +818,9 @@ def check_paged_decode_attention(dev, timer):
 
 
 # ---------------------------------------------------------------- phase 5
-# zamba2 d_model, mamba2 d_model, qwen2.5-7b d_model, zamba2 d_inner, mamba2 d_inner
-NORM_WIDTHS = (2048, 2560, 3584, 4096, 5120)
+# qwen2-vl d_model, zamba2 / qwen2-moe / musicgen d_model, mamba2 d_model,
+# qwen2.5-7b d_model, zamba2 d_inner, mamba2 d_inner
+NORM_WIDTHS = (1536, 2048, 2560, 3584, 4096, 5120)
 NORM_ROWS = (1, 4, 512, 2048)   # decode row, paged step, prefill chunk, prompt
 
 
@@ -780,9 +868,9 @@ def check_rmsnorm(dev, timer):
 
     log_kernel_build("rmsnorm", "rmsnorm_kernel")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    row = None
-    for R, D in ((1, 2560), (1, 5120), (1, 3584), (2048, 2560), (2048, 5120),
-                 (2048, 3584)):
+    row, vl = None, {}
+    for R, D in ((1, 2560), (1, 5120), (1, 3584), (1, 1536), (2048, 2560),
+                 (2048, 5120), (2048, 3584), (2048, 1536)):
         x, w = norm_case(dev, torch.bfloat16, R, D, 7 * R + D)
         out = ops.rmsnorm(x, w)
         err, _ = rel_err(out, ref.rmsnorm_ref(x, w))
@@ -794,6 +882,10 @@ def check_rmsnorm(dev, timer):
         log(f"  times, bf16 R={R} D={D} ({ops.norm_plan(R, D, 2, n_sm)}): kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, bound "
             f"{b_ms:.6f} ms ({b_by}: {nbytes} bytes)")
+        if D == 1536:    # qwen2-vl-2b: decode row and prompt
+            vl.update({f"qwen2_vl_r{R}_ms": ms, f"qwen2_vl_r{R}_plain_ms": plain_ms,
+                       f"qwen2_vl_r{R}_library_ms": lib_ms,
+                       f"qwen2_vl_r{R}_bound_ms": b_ms, f"qwen2_vl_r{R}_err": err})
         if D == 2560:
             dev_us = timer.device_us(lambda: ops.rmsnorm(x, w))
             if R == 1:   # a mamba2 step's 129 decode rows
@@ -815,7 +907,9 @@ def check_rmsnorm(dev, timer):
                        bound_by=b_by, library_ms=lib_ms, device_us=dev_us,
                        b2b_us=b2b_us,
                        shape="bf16 R=2048 D=2560 with w (mamba2-2.7b prefill "
-                             "norm1); b2b_us over 8 distinct inputs")
+                             "norm1); b2b_us over 8 distinct inputs; qwen2_vl_*: "
+                             "D=1536 at R=1 and 2048")
+    row.update(vl)
     return row
 
 
@@ -1057,26 +1151,8 @@ def main_path(dev):
         + " (streamed, streamed, fused)")
 
     # first decode step: kernel route against the sdpa route
-    with torch.inference_mode():
-        tok = runs[0].tokens[:, :1]
-        logits = {}
-        for backend in ("cuda", "sdpa"):
-            model.decode_backend = backend
-            _, cache = engine.prefill(batch, max_len)
-            logits[backend], _ = model.decode_step(engine.params, cache, tok)
-            logits[backend] = logits[backend].float()
-            del cache
-        model.decode_backend = "cuda"
-    if not all(bool(torch.isfinite(v).all()) for v in logits.values()):
-        raise AssertionError("non-finite first-step logits")
-    diff = float((logits["cuda"] - logits["sdpa"]).abs().max())
-    scale = float(logits["sdpa"].abs().max())
-    agree = int(logits["cuda"].argmax()) == int(logits["sdpa"].argmax())
-    log(f"  first-step logits cuda vs sdpa: max_abs_diff {diff:.4g}, "
-        f"max|logit| {scale:.4g}, argmax {'agrees' if agree else 'differs'} "
-        f"(tol 5e-2 x max|logit|)")
-    if diff > 5e-2 * scale:
-        raise AssertionError("bf16 first-step logits of cuda and sdpa disagree")
+    tok = runs[0].tokens[:, :1]
+    first_step_cuda_vs_sdpa(model, engine, batch, max_len, tok)
     _, kernels = device_time(model, engine, batch, max_len, tok, p50, p50_eager)
     check_attention_kernels(kernels, cfg.n_layers, "qwen2.5-7b bf16 step")
     torch.cuda.empty_cache()
@@ -2225,6 +2301,321 @@ def tiered_serving(dev, prefill_wall_ms):
     return counts, out
 
 
+# ---------------------------------------------------------------- phases 9c, 17
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "qwen2-vl-2b", "musicgen-large")
+
+
+def family_prompt(cfg, dev, n, seed):
+    """The launcher's batch-1 prompt (``serve.prompt_batch``: tokens, 4
+    codebooks for the audio arch, bf16 embeddings for the vlm), the vlm's
+    positions made an image's: t, h and w differ (t == h == w would make
+    M-RoPE plain RoPE)."""
+    from repro_torch.launch.serve import prompt_batch
+    batch = prompt_batch(cfg, 1, n, seed, dev)
+    if "embeds" in batch:
+        t = torch.arange(n, device=dev)
+        batch["positions"] = torch.stack([t, t // 32, t % 32], dim=-1)[None]
+    return batch
+
+
+def check_f32_family_tokens(dev):
+    """The same f32 weights, drawn once on the CPU, served on the card
+    (kernels 1 and 5) and on the CPU (their plain versions), two layers
+    at full width of each new family."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine
+    prompt = 64
+    log("== phase 9c: the moe, vlm and audio families inside the real path, card "
+        f"against CPU: {', '.join(FAMILY_ARCHS)} width, 2 layers, f32, prompt "
+        f"{prompt}, 16 tokens")
+    t_phase = time.perf_counter()
+    for name in FAMILY_ARCHS:
+        cfg = get_config(name).replace(n_layers=2, dtype="float32")
+        cpu_model = Model(cfg, device="cpu")
+        t0 = time.perf_counter()
+        cpu_params = cpu_model.init(torch.Generator().manual_seed(4))
+        batch = family_prompt(cfg, "cpu", prompt, 4)
+        out = {}
+        for label, model, params in (
+                ("cpu", cpu_model, cpu_params),
+                ("cuda", Model(cfg, device=dev), to_device(cpu_params, dev))):
+            b = {k: v.to(model.device) for k, v in batch.items()}
+            eng = DecodeEngine(model, params)
+            toks = eng.generate_streamed(b, max_len=prompt + 17, n_new=16).tokens
+            with torch.inference_mode():
+                _, cache = eng.prefill(b, prompt + 17)
+                logits, _ = model.decode_step(params, cache, toks[:, :1])
+            out[label] = (toks.cpu(), logits.float().cpu())
+            del eng, cache
+        same = torch.equal(out["cpu"][0], out["cuda"][0])
+        diff = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+        scale = float(out["cpu"][1].abs().max())
+        log(f"  {name} (2 layers, {time.perf_counter() - t0:.1f} s): greedy tokens "
+            f"{tuple(out['cuda'][0].shape)} cuda "
+            f"{out['cuda'][0][0].reshape(-1)[:16].tolist()}: "
+            f"{'identical to' if same else 'DIFFER from'} cpu; first-step logits "
+            f"{tuple(out['cuda'][1].shape)} max_abs_diff {diff:.4g}, max|logit| "
+            f"{scale:.4g} (tol 1e-4 x max|logit|)")
+        if not same or diff > 1e-4 * scale:
+            raise AssertionError(f"{name}: card and CPU disagree")
+        del cpu_params, out
+        torch.cuda.empty_cache()
+    log(f"  phase 9c took {time.perf_counter() - t_phase:.1f} s")
+
+
+def first_step_cuda_vs_sdpa(model, engine, batch, max_len, tok):
+    """First decode step's logits on the "cuda" route and the "sdpa"
+    route from the same prefill: finite, and within 5e-2 x max|logit|
+    where the two steps route every token to the same experts.  A moe
+    layer's top-k is discontinuous: the two routes' bf16 roundings can
+    move one choice, which changes the logits by more than rounding;
+    there the steps must still agree on the argmax, and the count of
+    layers that routed apart is logged (phase 9c holds the routes to
+    each other in f32)."""
+    from repro_torch.models import moe
+    real = moe._route
+    logits, routes = {}, {}
+    try:
+        with torch.inference_mode():
+            for backend in ("cuda", "sdpa"):
+                picked = routes[backend] = []
+
+                def spy(p, xt, cfg, picked=picked):
+                    out = real(p, xt, cfg)
+                    picked.append(out[0].sort(dim=-1).values.clone())
+                    return out
+                moe._route = spy
+                model.decode_backend = backend
+                _, cache = engine.prefill(batch, max_len)
+                picked.clear()          # the prefill's routes
+                logits[backend], _ = model.decode_step(engine.params, cache, tok)
+                logits[backend] = logits[backend].float()
+                del cache
+    finally:
+        moe._route = real
+        model.decode_backend = "cuda"
+    if not all(bool(torch.isfinite(v).all()) for v in logits.values()):
+        raise AssertionError("non-finite first-step logits")
+    diff = float((logits["cuda"] - logits["sdpa"]).abs().max())
+    scale = float(logits["sdpa"].abs().max())
+    agree = torch.equal(logits["cuda"].argmax(-1), logits["sdpa"].argmax(-1))
+    apart = sum(not torch.equal(a, b) for a, b in zip(routes["cuda"], routes["sdpa"]))
+    where = (f"; the two steps routed apart in {apart} of {len(routes['cuda'])} moe "
+             "layers" if routes["cuda"] else "")
+    log(f"  first-step logits {tuple(logits['cuda'].shape)} cuda vs sdpa: "
+        f"max_abs_diff {diff:.4g}, max|logit| {scale:.4g}, argmax "
+        f"{'agrees' if agree else 'differs'}{where} (tol 5e-2 x max|logit| "
+        "where no layer routed apart, else the argmax)")
+    if (diff > 5e-2 * scale) if apart == 0 else not agree:
+        raise AssertionError("bf16 first-step logits of cuda and sdpa disagree")
+
+
+def family_batch1(dev, name):
+    """Batch-1 decode of ``name`` at full width and depth (bf16, random
+    weights drawn on the card) through the engine's graph step: the
+    requests of phase 10, launch counts of kernels 1 and 5, streamed and
+    fused tokens identical, p50 against the floor, prefill wall, first
+    step cuda vs sdpa, device time per step.  Returns the model, its
+    params, the counts and the numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.floor import floor_cell
+    from repro_torch.core.hardware import GPU_H100
+    from repro_torch.models.model import Model
+    from repro_torch.quant import tree_weight_traffic
+    from repro_torch.serving import DecodeEngine
+    cfg = get_config(name)
+    L = cfg.n_layers
+    log(f"  -- {name} batch-1 ({cfg.family}, {L} layers, d_model {cfg.d_model}, "
+        f"bf16), prompt {PROMPT}"
+        + (f" x {cfg.n_codebooks} codebooks" if cfg.n_codebooks else "")
+        + (" (bf16 embeddings, t/h/w positions)" if cfg.family == "vlm" else "")
+        + f", {NEW} new tokens")
+    model = Model(cfg, decode_backend="cuda", device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"  random weights drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    engine = DecodeEngine(model, params)
+    batch = family_prompt(cfg, dev, PROMPT, 0)
+    max_len = PROMPT + NEW + 1
+    runs, launches = serve_graph_step(engine, batch, max_len)
+    counts = {k: launches[k] for k in ("decode_attention", "rmsnorm", "int4_matmul")}
+    steps = 3 * (NEW - 1)
+    norms = 2 * L + 1
+    want = dict(decode_attention=L * steps, rmsnorm=norms * (steps + 3), int4_matmul=0)
+    log(f"  engine graph step: launches by the timed requests {counts}; want "
+        f"decode_attention {L} x {steps} decode steps, rmsnorm {norms} x ({steps} "
+        f"decode steps + 3 prefills): {want}")
+    if counts != want:
+        raise AssertionError(f"{name}: the main path's kernel launches {counts} "
+                             f"differ from {want}")
+    shape = (1, NEW, cfg.n_codebooks) if cfg.n_codebooks else (1, NEW)
+    for i, r in enumerate(runs):
+        if tuple(r.tokens.shape) != shape:
+            raise AssertionError(f"request {i}: tokens {tuple(r.tokens.shape)}, "
+                                 f"want {shape}")
+    if not (torch.equal(runs[0].tokens, runs[1].tokens)
+            and torch.equal(runs[0].tokens, runs[2].tokens)):
+        raise AssertionError("streamed and fused greedy tokens differ")
+    pre_ms = prefill_wall(engine, batch, max_len)
+    step_s = runs[0].step_times_s + runs[1].step_times_s
+    p50 = statistics.median(step_s) * 1e3
+    tok = runs[0].tokens[:, :1]
+    p50_eager = eager_p50(engine, batch, tok)
+    fc = floor_cell(cfg, GPU_H100, PROMPT)
+    streamed = tree_weight_traffic(engine.params)
+    log(f"  tokens {shape}, streamed = fused; prefill of {PROMPT} tokens "
+        f"{pre_ms:.4f} ms wall, median of 3")
+    log(f"  p50 step {p50:.4f} ms (engine graph step, streamed, n={len(step_s)}); "
+        f"eager p50 {p50_eager:.4f} ms (plain decode_step calls, measure_cell); "
+        f"analytic floor {fc.t_floor_ms:.4f} ms (floor_cell {name}, {GPU_H100.name}, "
+        f"ctx {PROMPT}); R_floor {fc.t_floor_ms / p50:.4f} (eager "
+        f"{fc.t_floor_ms / p50_eager:.4f}); weights by tree_weight_traffic "
+        f"{streamed / 1e9:.4f} GB, the floor's {fc.weight_bytes / 1e9:.4f} GB + KV "
+        f"{fc.kv_bytes / 1e9:.4f} GB")
+    log("  tok/s: " + ", ".join(f"{r.tokens_per_s:.2f}" for r in runs)
+        + " (streamed, streamed, fused)")
+    first_step_cuda_vs_sdpa(model, engine, batch, max_len, tok)
+    busy, kernels = device_time(model, engine, batch, max_len, tok, p50, p50_eager)
+    check_attention_kernels(kernels, L, f"{name} bf16 step")
+    numbers = dict(graph_p50_ms=p50, eager_p50_ms=p50_eager, floor_ms=fc.t_floor_ms,
+                   r_floor=fc.t_floor_ms / p50, r_floor_eager=fc.t_floor_ms / p50_eager,
+                   device_ms=busy, busy_share=busy / p50,
+                   kernels_per_step=sum(kernels.values()), prefill_ms=pre_ms,
+                   tok_s=[r.tokens_per_s for r in runs], weight_bytes=streamed,
+                   floor_weight_bytes=fc.weight_bytes)
+    del engine
+    torch.cuda.empty_cache()
+    return model, params, counts, numbers
+
+
+def moe_int4(dev, model, params):
+    """qwen2-moe-a2.7b under int4_fused: one request through the engine's
+    graph step; kernel 3 launches 7 x n_layers per step (attention and
+    shared experts; the expert stacks are dequantised, as in the
+    reference)."""
+    from repro_torch.core.floor import floor_cell
+    from repro_torch.core.hardware import GPU_H100
+    from repro_torch.quant import tree_weight_traffic
+    from repro_torch.serving import DecodeEngine
+    cfg = model.cfg
+    log(f"  -- {cfg.name} batch-1 int4_fused (quantised on the card)")
+    t0 = time.perf_counter()
+    engine = DecodeEngine(model, params, quant_path="int4_fused")
+    torch.cuda.synchronize()
+    log(f"  quantised in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    batch = family_prompt(cfg, dev, PROMPT, 0)
+    max_len = PROMPT + NEW + 1
+    engine.generate_streamed(batch, max_len=max_len, n_new=NEW)   # capture
+    zero_counts()
+    res = engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True)
+    launches = launched()
+    counts = {k: launches[k] for k in ("decode_attention", "rmsnorm", "int4_matmul")}
+    per_step = 7 * cfg.n_layers
+    norms = 2 * cfg.n_layers + 1
+    want = dict(decode_attention=cfg.n_layers * (NEW - 1),
+                rmsnorm=norms * NEW, int4_matmul=per_step * NEW)
+    log(f"  engine graph step: launches {counts}; want int4_matmul 7 x "
+        f"{cfg.n_layers} x ({NEW - 1} decode steps + the prefill): {want}")
+    if counts != want:
+        raise AssertionError(f"int4 {cfg.name}: launches {counts} differ from {want}")
+    if tuple(res.tokens.shape) != (1, NEW):
+        raise AssertionError(f"int4 tokens {tuple(res.tokens.shape)}")
+    p50 = statistics.median(res.step_times_s) * 1e3
+    streamed = tree_weight_traffic(engine.params)
+    fq = floor_cell(cfg, GPU_H100, PROMPT, weight_dtype_bytes=0.5)
+    log(f"  p50 step {p50:.4f} ms (engine graph step, n={len(res.step_times_s)}); "
+        f"{res.tokens_per_s:.2f} tok/s; weights by tree_weight_traffic "
+        f"{streamed / 1e9:.4f} GB (int4 codes and scales, plus the bf16 copy of "
+        f"every expert stack written and read); int4 floor {fq.t_floor_ms:.4f} ms "
+        f"({fq.weight_bytes / 1e9:.4f} GB active weights), R_floor "
+        f"{fq.t_floor_ms / p50:.4f}")
+    del engine
+    torch.cuda.empty_cache()
+    return counts, dict(graph_p50_ms=p50, weight_bytes=streamed,
+                        floor_ms=fq.t_floor_ms, r_floor=fq.t_floor_ms / p50,
+                        tok_s=res.tokens_per_s)
+
+
+def moe_paged(dev, model, params):
+    """qwen2-moe-a2.7b paged serving: the 8 sessions of phase 12 through 4
+    paged slots, page 16, prefill chunk 512, bf16 KV, K=1; every session
+    ends with its budget, the step is captured once and its replays
+    launch kernel 2 once per layer and device step."""
+    from repro_torch.core import dispatch
+    from repro_torch.launch.serve import mixed_requests
+    from repro_torch.serving import DecodeEngine
+    cfg = model.cfg
+    log(f"  -- {cfg.name} paged serving: 8 sessions through 4 slots, prompts "
+        f"{PROMPT}+, {NEW}+ new tokens, page {PAGE}, prefill chunk 512, bf16 KV, K=1")
+    reqs = mixed_requests(cfg, 8, base_prompt=PROMPT, base_new=NEW, seed=0)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 1
+    engine = DecodeEngine(model, params)
+    zero_counts()
+    res = engine.generate_continuous(reqs, max_len=max_len, n_slots=4, paged=True,
+                                     page_size=PAGE, prefill_chunk=512)
+    launches = launched()
+    replayed = dispatch.replay_launches.get("paged_decode_attention", 0)
+    counts = {k: launches[k] for k in ("paged_decode_attention", "rmsnorm")}
+    budgets = {r.session_id: r.max_new_tokens for r in reqs}
+    got = {sid: len(s.tokens) for sid, s in res.sessions.items()}
+    step_s = [t for s in res.sessions.values() for t in s.step_times_s]
+    p50 = statistics.median(step_s) * 1e3
+    log(f"  {len(res.sessions)} sessions, {res.run_tokens} tokens in {res.ticks} "
+        f"ticks / {res.dispatches} decode dispatches, {res.preemptions} "
+        f"preemptions, {res.prefill_tokens} prefill tokens; "
+        f"{res.step_cache_size} CUDA graph(s); launches on the card {counts}, "
+        f"the replays' paged kernels {replayed} ({cfg.n_layers} x "
+        f"{res.dispatches})")
+    log(f"  aggregate {res.tokens_per_s:.2f} tok/s over {res.wall_s:.3f} s wall; "
+        f"p50 decode time per token {p50:.4f} ms (n={len(step_s)})")
+    if got != budgets:
+        raise AssertionError(f"moe paged: sessions ended short: {got} vs {budgets}")
+    if res.step_cache_size != 1:
+        raise AssertionError("moe paged: decode step not captured once")
+    if replayed != res.dispatches * cfg.n_layers:
+        raise AssertionError(f"moe paged: the replays launched the paged kernel "
+                             f"{replayed} times, want {cfg.n_layers} per device step")
+    del engine
+    torch.cuda.empty_cache()
+    return counts, dict(p50_ms_per_token=p50, tok_s=res.tokens_per_s,
+                        preemptions=res.preemptions, dispatches=res.dispatches)
+
+
+def free_card():
+    """Collect what earlier phases left (an engine and its graph
+    executors refer to each other, so their weights wait for the cycle
+    collector) and return the cache to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def families_full_width(dev):
+    free_card()
+    log(f"== phase 17: the moe, vlm and audio families at full width (bf16, random "
+        f"weights drawn on the card), prompt {PROMPT}, {NEW} new tokens; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated at the start")
+    t_phase = time.perf_counter()
+    counts, out = {}, {}
+    model, params, counts["moe"], out["qwen2-moe-a2.7b bf16"] = family_batch1(
+        dev, "qwen2-moe-a2.7b")
+    counts["moe_int4"], out["qwen2-moe-a2.7b int4"] = moe_int4(dev, model, params)
+    free_card()
+    counts["moe_paged"], out["qwen2-moe-a2.7b paged"] = moe_paged(dev, model, params)
+    del model, params
+    free_card()
+    for key, name in (("vlm", "qwen2-vl-2b"), ("audio", "musicgen-large")):
+        model, params, counts[key], out[name] = family_batch1(dev, name)
+        del model, params
+        free_card()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 17 took {out['seconds']:.1f} s")
+    return counts, out
+
+
 # ---------------------------------------------------------------- main
 PENDING = []    # TPU kernels still to port: none
 
@@ -2242,9 +2633,11 @@ def kernels_line(rows) -> str:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels"],
+    ap.add_argument("--only", choices=["kernels", "families"],
                     help="kernels: phases 1-6 and the kernels line (launches "
-                         "null), no main path and no ok line")
+                         "null), no main path and no ok line; families: "
+                         "phases 1, 9c and 17 (the moe, vlm and audio "
+                         "families), no kernels line and no ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2253,6 +2646,12 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     smi, dev = setup()
+    if args.only == "families":
+        check_f32_family_tokens(dev)
+        _, fam = families_full_width(dev)
+        log(json.dumps({"families": fam}))
+        log(smi.splitlines()[0])
+        return 0
     timer = Timer(dev)
     rows = [check_decode_attention(dev, timer), check_int4_matmul(dev, timer)]
     rows += check_paged_decode_attention(dev, timer)
@@ -2272,6 +2671,7 @@ def main(argv=None) -> int:
     check_f32_paged_tokens(dev)
     check_f32_ssm_tokens(dev)
     check_f32_tier_tokens(dev)
+    check_f32_family_tokens(dev)
     da_launches, i4_launches, dense_norms, prefill = main_path(dev)
     rows[1].update(prefill)
     torch.cuda.empty_cache()
@@ -2280,19 +2680,30 @@ def main(argv=None) -> int:
            ssm_main_path(dev, "zamba2-1.2b", 14)]
     ab = dispatch_ab(dev)
     tier_counts, tier = tiered_serving(dev, prefill["prefill_wall_bf16_ms"])
+    torch.cuda.empty_cache()
+    fc, fam = families_full_width(dev)
     dense, int4 = "qwen2.5-7b batch-1 bf16", "qwen2.5-7b batch-1 int4"
     paged = ("qwen2.5-7b paged bf16 KV", "qwen2.5-7b paged int8 KV")
     tiered = ("qwen2.5-7b tiered paged bf16 KV", "qwen2.5-7b tiered paged int8 KV")
     t_bf16, t_int8 = tier_counts["bf16 KV, K=1"], tier_counts["int8 KV, K=4"]
     mamba, zamba = "mamba2-2.7b batch-1", "zamba2-1.2b batch-1"
+    moe, moe_q, moe_p = ("qwen2-moe-a2.7b batch-1 bf16", "qwen2-moe-a2.7b batch-1 int4",
+                         "qwen2-moe-a2.7b paged bf16 KV")
+    vl, audio = "qwen2-vl-2b batch-1", "musicgen-large batch-1"
     by_path = [
-        {dense: da_launches, zamba: ssm[1]["decode_attention"]},
-        {int4: i4_launches},
-        {paged[0]: paged_launches[0], tiered[0]: t_bf16[0]},
+        {dense: da_launches, zamba: ssm[1]["decode_attention"],
+         moe: fc["moe"]["decode_attention"], moe_q: fc["moe_int4"]["decode_attention"],
+         vl: fc["vlm"]["decode_attention"], audio: fc["audio"]["decode_attention"]},
+        {int4: i4_launches, moe_q: fc["moe_int4"]["int4_matmul"]},
+        {paged[0]: paged_launches[0], tiered[0]: t_bf16[0],
+         moe_p: fc["moe_paged"]["paged_decode_attention"]},
         {paged[1]: paged_launches[1], tiered[1]: t_int8[0]},
         {dense: dense_norms, paged[0]: paged_norms[0], paged[1]: paged_norms[1],
          tiered[0]: t_bf16[1], tiered[1]: t_int8[1],
-         mamba: ssm[0]["rmsnorm"], zamba: ssm[1]["rmsnorm"]},
+         mamba: ssm[0]["rmsnorm"], zamba: ssm[1]["rmsnorm"],
+         moe: fc["moe"]["rmsnorm"], moe_q: fc["moe_int4"]["rmsnorm"],
+         moe_p: fc["moe_paged"]["rmsnorm"], vl: fc["vlm"]["rmsnorm"],
+         audio: fc["audio"]["rmsnorm"]},
         {mamba: ssm[0]["ssd_update"], zamba: ssm[1]["ssd_update"]}]
     for row, counts in zip(rows, by_path):
         row["launches"] = sum(counts.values())
@@ -2301,6 +2712,7 @@ def main(argv=None) -> int:
     log(json.dumps({"pending_kernels": PENDING}))
     log(json.dumps({"dispatch_ab": ab}))
     log(json.dumps({"host_tier": tier}))
+    log(json.dumps({"families": fam}))
     log(smi.splitlines()[0])
     print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {

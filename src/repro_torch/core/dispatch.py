@@ -34,6 +34,7 @@ the card are ``launches - captured_launches + replay_launches``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -84,11 +85,23 @@ def capture(fn: Callable[[], Any], inputs: Dict[str, torch.Tensor], *,
             pool=None) -> _Captured:
     """Record ``fn()`` as one CUDA graph on its static ``inputs`` (into
     ``pool`` when given: graphs replayed in the order they were captured
-    may share one).  Capture records the launches without running them."""
+    may share one).  Capture records the launches without running them.
+
+    Reference cycles are collected first and the collector is off
+    during capture: a cycle freed inside it (a scheduler and its host
+    tier's page-locked rows, say) would make CUDA calls that a capture
+    forbids, and the capture would fail."""
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
-    with torch.cuda.graph(graph, pool=pool):
-        output = fn()
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            output = fn()
+    finally:
+        if enabled:
+            gc.enable()
     launches = {name: n - before[name] for name, n in launch_counts().items()
                 if n != before[name]}
     _tally(captured_launches, launches)

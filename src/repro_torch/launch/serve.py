@@ -10,9 +10,15 @@
       --prompt-len 2048 --new-tokens 32 --timed [--mode fused]
 
 (the ssm and hybrid archs, ``mamba2-2.7b`` and ``zamba2-1.2b``, serve
-batch-1 only), plus the continuous-batching multi-session modes of the
-attention families (slotted or paged KV cache, prefix sharing, int8 KV,
-horizon-K ticks):
+batch-1 only; the vlm's batch-1 prompt is random patch embeddings with
+M-RoPE positions, the audio's 4 codebooks of tokens), plus the
+continuous-batching multi-session modes of the attention families
+(dense, moe, vlm; slotted or paged KV cache, prefix sharing, int8 KV,
+horizon-K ticks; the audio arch's codebooks raise in the scheduler, as
+in the reference):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+      --reduced --device cpu --paged --slots 4 --sessions 8 --timed
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --reduced --device cpu --paged --prefix-cache --kv-quant int8 \
@@ -208,9 +214,8 @@ def main(argv=None):
     if args.continuous:
         return serve_continuous(engine, cfg, args)
 
-    rng = np.random.default_rng(args.seed)
-    prompt = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
-    batch = {"tokens": torch.from_numpy(prompt).to(model.device)}
+    batch = prompt_batch(cfg, args.batch, args.prompt_len, args.seed,
+                         model.device)
     max_len = args.prompt_len + args.new_tokens + 1
 
     if args.mode == "fused":
@@ -234,6 +239,26 @@ def main(argv=None):
               f"floor {fc.t_floor_ms:.4g} ms, R_floor "
               f"{fc.r_floor(p50 / 1e3):.4g}")
     print("first tokens:", res.tokens[0, :12].tolist())
+
+
+def prompt_batch(cfg, batch: int, prompt_len: int, seed: int, device):
+    """The batch-1 prompt in the shapes of the reference's
+    ``synthetic_batch``, drawn with numpy from ``seed``: tokens (B, S),
+    or (B, S, K) with audio codebooks; for the vlm, bf16 ``embeds``
+    (B, S, D) and ``positions`` 0..S-1 broadcast to (B, S, 3), no
+    tokens."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        embeds = rng.standard_normal((batch, prompt_len, cfg.d_model),
+                                     dtype=np.float32)
+        pos = np.broadcast_to(np.arange(prompt_len)[None, :, None],
+                              (batch, prompt_len, 3))
+        return {"embeds": torch.from_numpy(embeds).to(device, torch.bfloat16),
+                "positions": torch.from_numpy(pos.copy()).to(device)}
+    shape = ((batch, prompt_len, cfg.n_codebooks) if cfg.n_codebooks
+             else (batch, prompt_len))
+    return {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, shape)).to(device)}
 
 
 def mixed_requests(cfg, n_sessions: int, *, base_prompt: int,

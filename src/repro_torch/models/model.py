@@ -1,4 +1,5 @@
-"""Model assembly: dense, ssm (Mamba2) and hybrid (Zamba2) families.
+"""Model assembly for all six families (dense / moe / ssm / hybrid /
+vlm / audio).
 
 Port of ``repro.models.model`` with the same API, params passed in:
 
@@ -10,18 +11,23 @@ Port of ``repro.models.model`` with the same API, params passed in:
     logits, cache = m.decode_step(params, cache, tokens)
 
 Params are a dict with the reference's keys (``embed``, ``blocks``,
-``final_norm``, ``lm_head``, ``shared_attn`` for the hybrid); ``blocks``
-is a Python list of per-layer dicts where the reference stacks layers
-on a leading L axis.  Caches are
-preallocated and updated **in place**: ``prefill``, the per-slot
-prefills, ``copy_kv_page`` and ``decode_step`` write into the cache they
-are given and return that same dict, and the position ``pos`` (a 0-dim
+``final_norm``, ``lm_head``, ``shared_attn`` for the hybrid, ``moe`` in
+a moe block); ``blocks`` is a Python list of per-layer dicts where the
+reference stacks layers on a leading L axis.  The audio family (MusicGen)
+stacks its ``n_codebooks`` embedding tables and heads as (K, V, D), sums
+the codebooks' embeddings on the way in and returns (B, S, K, V) logits;
+the vlm family (Qwen2-VL) takes ``batch["embeds"]`` (B, S, D) and
+M-RoPE ``batch["positions"]`` (B, S, 3) at prefill and tokens at decode.
+Caches are preallocated and updated **in place**: ``prefill``, the
+per-slot prefills, ``copy_kv_page`` and ``decode_step`` write into the
+cache they are given and return that same dict, and the position ``pos`` (a 0-dim
 device tensor, or a (B,) vector on slotted and paged caches) is advanced
 in place, so a decode step reads nothing back to the host and can replay
 as a CUDA graph at fixed addresses.  The ssm and hybrid families serve
 contiguous batch caches only (their recurrent state ``h`` and conv
 window ``conv`` are updated in place too); slotted, paged and int8-KV
 caches and active-lane masking raise for them, as in the reference.
+The attention families (dense, vlm, audio, moe) take every cache layout.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dispatch import StepProgram
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, moe
 from repro_torch.models.common import (apply_norm, apply_rope, embed_init,
                                        init_mlp, init_norm, make_angle_fn,
                                        mlp_forward)
@@ -52,8 +58,8 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-ATTENTION_FAMILIES = ("dense",)
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+ATTENTION_FAMILIES = ("dense", "vlm", "audio", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 class Model:
@@ -86,6 +92,11 @@ class Model:
         if cfg.family in ("ssm", "hybrid"):
             return {"norm1": init_norm(cfg, dt, dev),
                     "mamba": mamba2.init_mamba(gen, cfg, dt)}
+        if cfg.family == "moe":
+            return {"norm1": init_norm(cfg, dt, dev),
+                    "attn": attn.init_attention(gen, cfg, dt),
+                    "norm2": init_norm(cfg, dt, dev),
+                    "moe": moe.init_moe(gen, cfg, dt)}
         return self._init_shared_attn(gen)
 
     def _init_shared_attn(self, gen: torch.Generator) -> Params:
@@ -106,37 +117,62 @@ class Model:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on {self.device}")
         cfg, dt = self.cfg, self.dtype
+
+        def tables():
+            """One (V, D) table, or (K, V, D): one per audio codebook."""
+            if not cfg.n_codebooks:
+                return embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
+            return torch.stack([embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
+                                for _ in range(cfg.n_codebooks)])
         params: Params = {
-            "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
+            "embed": tables(),
             "blocks": [self._init_block(gen) for _ in range(cfg.n_layers)],
             "final_norm": init_norm(cfg, dt, self.device),
         }
         if cfg.family == "hybrid":
             params["shared_attn"] = self._init_shared_attn(gen)
         if not cfg.tie_embeddings:
-            params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
+            params["lm_head"] = tables()
         return params
 
     # ------------------------------------------------------------------
     # embedding / head
     # ------------------------------------------------------------------
     def embed_tokens(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.n_codebooks:
+            # tokens (B, S, K): the codebooks' embeddings summed left to
+            # right, as the reference's functools.reduce(jnp.add, ...)
+            x = F.embedding(tokens[..., 0], params["embed"][0])
+            for k in range(1, cfg.n_codebooks):
+                x = x + F.embedding(tokens[..., k], params["embed"][k])
+            return x
         return F.embedding(tokens, params["embed"])
 
     def lm_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         head = params["embed"] if self.cfg.tie_embeddings else params["lm_head"]
+        if self.cfg.n_codebooks:
+            return torch.einsum("bsd,kvd->bskv", x, head)
         return x @ head.T
 
     # ------------------------------------------------------------------
     # forward (prefill backbone)
     # ------------------------------------------------------------------
+    def _ffn(self, bp: Params, h, with_aux: bool = False):
+        """The block's FFN on the normed stream: (out, aux) — the routed
+        MoE (aux: its load-balance loss, or None without ``with_aux``)
+        or the MLP (aux 0.0)."""
+        if "moe" in bp:
+            return moe.moe_forward(bp["moe"], h, self.cfg, with_aux=with_aux)
+        return mlp_forward(bp["mlp"], h, self.cfg.mlp_gated), 0.0
+
     def _attn_block_full(self, bp: Params, x, angles):
         cfg = self.cfg
         a_out, (k, v) = attn.attention_full(bp["attn"], apply_norm(x, bp["norm1"]),
                                             angles, cfg, apply_rope)
         x = x + a_out
-        h = apply_norm(x, bp["norm2"])
-        return x + mlp_forward(bp["mlp"], h, cfg.mlp_gated), (k, v)
+        m_out, aux = self._ffn(bp, apply_norm(x, bp["norm2"]), with_aux=True)
+        return x + m_out, aux, (k, v)
 
     def _mamba_block_full(self, bp: Params, x):
         y, h_fin, conv = mamba2.mamba_forward(
@@ -144,29 +180,46 @@ class Model:
             chunk=self.ssd_chunk)
         return x + y, h_fin, conv
 
+    def _positions(self, batch: Dict, B: int, S: int, device):
+        pos = batch.get("positions")
+        if pos is None:
+            return torch.arange(S, device=device)[None, :].expand(B, S)
+        return pos.to(device)
+
     def backbone(self, params: Params, batch: Dict, *, collect_cache: bool = False):
-        """Full-sequence backbone over ``batch["tokens"]`` (B, S).  Returns
-        (hidden, aux, layer_caches).  With ``collect_cache``, layer_caches
-        is a list of per-layer (k, v) (dense), of per-layer (h, conv)
-        (ssm), or ``(states, kvs)`` with one (k, v) per application of
-        the shared block (hybrid)."""
+        """Full-sequence backbone over ``batch["tokens"]`` (B, S), or
+        (B, S, K) with audio codebooks, or ``batch["embeds"]`` (B, S, D)
+        in their place (vlm: precomputed patch and text embeddings, cast
+        to the model dtype), at ``batch["positions"]`` when given ((B,
+        S, 3) t/h/w ids for M-RoPE), else 0..S-1.  Returns (hidden, aux,
+        layer_caches); aux sums the moe layers' load-balance losses (0.0
+        for the other families).  With ``collect_cache``, layer_caches is
+        a list of per-layer (k, v) (attention families), of per-layer
+        (h, conv) (ssm), or ``(states, kvs)`` with one (k, v) per
+        application of the shared block (hybrid)."""
         cfg = self.cfg
-        x = self.embed_tokens(params, batch["tokens"])
+        x = batch.get("embeds")
+        if x is None:
+            x = self.embed_tokens(params, batch["tokens"])
+        else:
+            x = x.to(device=self.device, dtype=self.dtype)
         B, S = x.shape[0], x.shape[1]
-        angles = (self.angle_fn(torch.arange(S, device=x.device)[None, :]
-                                .expand(B, S)) if self.angle_fn else None)
+        angles = (self.angle_fn(self._positions(batch, B, S, x.device))
+                  if self.angle_fn else None)
         if cfg.family == "hybrid":
             return self._hybrid_backbone(params, x, angles, collect_cache)
         caches = []
+        aux = 0.0
         for bp in params["blocks"]:
             if cfg.family == "ssm":
                 x, h_fin, conv = self._mamba_block_full(bp, x)
                 layer_cache = (h_fin, conv)
             else:
-                x, layer_cache = self._attn_block_full(bp, x, angles)
+                x, aux_l, layer_cache = self._attn_block_full(bp, x, angles)
+                aux = aux + aux_l
             if collect_cache:
                 caches.append(layer_cache)
-        return x, 0.0, (caches if collect_cache else None)
+        return x, aux, (caches if collect_cache else None)
 
     def _hybrid_groups(self):
         """(first, end) layer ranges; the shared block runs before each."""
@@ -180,14 +233,14 @@ class Model:
         sp = params["shared_attn"]
         states, kvs = [], []
         for g0, g1 in self._hybrid_groups():
-            x, kv = self._attn_block_full(sp, x, angles)
+            x, _, kv = self._attn_block_full(sp, x, angles)
             kvs.append(kv)
             for bp in params["blocks"][g0:g1]:
                 x, h_fin, conv = self._mamba_block_full(bp, x)
                 states.append((h_fin, conv))
         return x, 0.0, ((states, kvs) if collect_cache else None)
 
-    def forward(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, float]:
+    def forward(self, params: Params, batch: Dict) -> Tuple[torch.Tensor, Any]:
         x, aux, _ = self.backbone(params, batch)
         x = apply_norm(x, params["final_norm"])
         return self.lm_logits(params, x), aux
@@ -402,7 +455,7 @@ class Model:
                 f"{self.cfg.family!r}")
         if "block_table" in cache:
             return self.prefill_chunk_into_slot(params, batch, cache, slot, 0)
-        n, S = batch["tokens"].shape
+        n, S = next(iter(batch.values())).shape[:2]
         if n != 1 or S > cache["k"].shape[2]:
             raise ValueError(f"prefill_into_slot takes a batch-1 prompt of at "
                              f"most {cache['k'].shape[2]} tokens; got {(n, S)}")
@@ -452,8 +505,7 @@ class Model:
                 k_scale_pool=cache["k_scale"][i] if quantized else None,
                 v_scale_pool=cache["v_scale"][i] if quantized else None)
             x = x + a_out
-            x = x + mlp_forward(bp["mlp"], apply_norm(x, bp["norm2"]),
-                                cfg.mlp_gated)
+            x = x + self._ffn(bp, apply_norm(x, bp["norm2"]))[0]
         cache["pos"][slot] = start_pos + C
         x_last = apply_norm(x[:, -1:], params["final_norm"])
         return self.lm_logits(params, x_last), cache
@@ -470,8 +522,7 @@ class Model:
             backend=self.decode_backend, k_scale=k_scale, v_scale=v_scale,
             active=active)
         x = x + a_out
-        h = apply_norm(x, bp["norm2"])
-        return x + mlp_forward(bp["mlp"], h, cfg.mlp_gated)
+        return x + self._ffn(bp, apply_norm(x, bp["norm2"]))[0]
 
     def _mamba_block_decode(self, bp, x, h, conv):
         y, _, _ = mamba2.mamba_decode_step(
@@ -488,14 +539,14 @@ class Model:
             backend=self.decode_backend, active=active,
             k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
         x = x + a_out
-        h = apply_norm(x, bp["norm2"])
-        return x + mlp_forward(bp["mlp"], h, cfg.mlp_gated)
+        return x + self._ffn(bp, apply_norm(x, bp["norm2"]))[0]
 
     # staticcheck: hotpath
     def decode_step(self, params: Params, cache: Cache, tokens: torch.Tensor,
                     active: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Cache]:
-        """One new token per sequence.  tokens (B,1).
+        """One new token per sequence.  tokens (B,1), or (B,1,K) with audio
+        codebooks (logits (B,1,K,V)).
 
         Writes each layer's new K/V row into the cache and advances
         ``cache["pos"]``, all in place; returns (logits (B,1,V), the same
@@ -581,17 +632,21 @@ class Model:
                      ) -> Tuple[torch.Tensor, Cache]:
         """Advance every sequence up to ``horizon`` tokens with on-device
         sampling (greedy argmax, or categorical draws from ``gen``),
-        returning the token matrix (B, horizon) without reading anything
-        back to the host.
+        returning the token matrix (B, horizon) — (B, horizon, K) with
+        audio codebooks — without reading anything back to the host.
 
         ``steps_left`` (B,) int32 caps each lane's real steps (slotted
         caches): a lane stops being active once its budget is spent or,
         with ``eos_id``, once it samples EOS; after that its cache writes
         are no-ops, its position freezes and its emitted tokens repeat
-        the last real one (the host trims them).  Greedy streams are
+        the last real one (the host trims them); it raises with audio
+        codebooks, as the reference does.  Greedy streams are
         token-identical to ``horizon`` single ``decode_step`` calls."""
         from repro_torch.serving.sampling import sample
         masked = steps_left is not None
+        if masked and self.cfg.n_codebooks:
+            raise NotImplementedError(
+                "steps_left masking serves single-codebook archs")
         if eos_id is not None and not masked:
             raise NotImplementedError("eos_id requires steps_left masking")
         toks = []

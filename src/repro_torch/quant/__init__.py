@@ -5,7 +5,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.quant.paths import matmul, weight_bytes_streamed  # noqa: F401
+from repro_torch.quant.paths import (expert_einsum, matmul,  # noqa: F401
+                                     weight_bytes_streamed)
 from repro_torch.quant.quantize import (DEFAULT_GROUP, QuantizedTensor,  # noqa: F401
                                         dequantize, quantize, unpack_int4)
 

@@ -10,6 +10,9 @@ their ``path``:
             takes its plain version); other fused weights multiply a
             bf16 dequantisation, as the reference does off its TPU, and
             are charged its bytes (``QuantizedTensor.int4_kernel``).
+
+``expert_einsum`` is the same entry point for the MoE's stacked (E, K, N)
+expert weights.
 """
 from __future__ import annotations
 
@@ -31,6 +34,17 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
             return y.reshape(*lead, w.n)
         return x @ dequantize(w, torch.bfloat16).to(x.dtype)
     return x @ w
+
+
+def expert_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
+    """Batched expert matmul 'ecd,edf->ecf' / 'ecf,efd->ecd' with
+    quant-path dispatch on stacked (E, K, N) weights.  Both quant paths
+    multiply by a dequantisation of the whole stack in x's dtype, as the
+    reference does; ``QuantizedTensor.nbytes_streamed`` charges that
+    copy's write and read (``int4_kernel`` is False for 3-D weights)."""
+    if isinstance(w, QuantizedTensor):
+        return torch.einsum(spec, x, dequantize(w, x.dtype))
+    return torch.einsum(spec, x, w)
 
 
 def weight_bytes_streamed(w) -> float:

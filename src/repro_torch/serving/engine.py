@@ -50,7 +50,7 @@ from repro_torch.serving.sampling import sample
 
 @dataclasses.dataclass
 class GenerationResult:
-    tokens: torch.Tensor          # (B, n_new)
+    tokens: torch.Tensor          # (B, n_new), or (B, n_new, K) with codebooks
     step_times_s: List[float]     # per-token wall times (step-streamed, timed)
     tokens_per_s: float
 
@@ -117,6 +117,15 @@ class DecodeEngine:
             run = self._executors[key] = StepProgram([stage]).executor("full_jit")
         return run(state)
 
+    def _token_shape(self, ids: torch.Tensor) -> torch.Tensor:
+        """Sampled ids as the next step's tokens: (B,) -> (B, 1), and
+        (B, K) audio codebooks -> (B, 1, K)."""
+        if self.cfg.n_codebooks and ids.dim() == 2:
+            return ids[:, None, :]
+        if ids.dim() == 1:
+            return ids[:, None]
+        return ids
+
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
@@ -143,7 +152,8 @@ class DecodeEngine:
         for _ in range(n_new - 1):
             t0 = time.perf_counter()
             logits = self._run(key + ("step",), self.decode_stage,
-                               {"tokens": tok[:, None], "cache": cache})["logits"]
+                               {"tokens": self._token_shape(tok),
+                                "cache": cache})["logits"]
             tok = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
             if timed:
                 self._sync()
@@ -172,14 +182,14 @@ class DecodeEngine:
         gen = self._generator(seed)
         tok0 = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
         horizon = n_new - 1
-        state = {"tokens": tok0[:, None], "cache": cache, "gen": gen,
+        state = {"tokens": self._token_shape(tok0), "cache": cache, "gen": gen,
                  "horizon": horizon, "temperature": temperature, "top_k": top_k}
         self._sync()
         t0 = time.perf_counter()
         toks = self._run(key + ("steps", horizon), self._steps_stage, state)["out"]
         self._sync()
         dt = time.perf_counter() - t0
-        tokens = torch.cat([tok0[:, None], toks], dim=1)
+        tokens = torch.cat([self._token_shape(tok0), toks], dim=1)
         tps = (n_new - 1) / dt if n_new > 1 and dt > 0 else float("nan")
         return GenerationResult(tokens, [], tps)
 

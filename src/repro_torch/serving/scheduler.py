@@ -100,6 +100,9 @@ class SlotScheduler(VirtualClockMixin):
         if adaptive_k and steps_per_tick < 2:
             raise NotImplementedError(
                 "adaptive_k needs a horizon ceiling >= 2 to adapt below")
+        if model.cfg.n_codebooks:
+            raise NotImplementedError(
+                "continuous batching serves single-codebook archs")
         if steps_per_tick > 1 and dispatch_mode != "full_jit":
             raise NotImplementedError(
                 "horizon-K fused ticks ARE the one-program (full_jit) arm")

@@ -43,7 +43,8 @@ def _close(out, ref, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Hq,Hkv,hd,S", [
     (1, 28, 4, 128, 512), (2, 8, 2, 64, 256), (3, 16, 4, 64, 384),
-    (2, 4, 4, 128, 128), (1, 2, 1, 32, 96), (1, 28, 4, 128, 2047)])
+    (2, 4, 4, 128, 128), (1, 2, 1, 32, 96), (1, 28, 4, 128, 2047),
+    (1, 16, 16, 128, 2081), (1, 12, 2, 128, 2081)])   # qwen2-moe, qwen2-vl (G=6)
 def test_decode_attention(cuda, dtype, B, Hq, Hkv, hd, S):
     g = torch.Generator(device=cuda).manual_seed(S)
     q = torch.randn((B, Hq, hd), generator=g, device=cuda).to(dtype)
@@ -75,7 +76,7 @@ def _mma_case(dev, B, G, Hkv, hd, S, seed):
     return q, k, v, mask
 
 
-@pytest.mark.parametrize("G", [1, 4, 7, 8, 16])
+@pytest.mark.parametrize("G", [1, 4, 6, 7, 8, 16])
 @pytest.mark.parametrize("hd", [32, 64, 128])
 def test_decode_attention_mma(cuda, hd, G):
     """Kernel 1's mma path (bf16): one launch per call, within bf16's
@@ -118,11 +119,13 @@ def test_decode_attention_mma_one_split_and_long_range(cuda):
     assert torch.equal(da_ops.decode_attention(q, k, v, mask), out)
 
 
-@pytest.mark.parametrize("hd,G,Hkv,S", [(128, 7, 4, 2081), (64, 1, 32, 2081)])
+@pytest.mark.parametrize("hd,G,Hkv,S", [(128, 7, 4, 2081), (64, 1, 32, 2081),
+                                       (128, 1, 16, 2081), (128, 6, 2, 2081)])
 def test_decode_attention_mma_is_one_launch(cuda, hd, G, Hkv, S):
-    """At the two main-path shapes (qwen2.5-7b, zamba2-1.2b's shared
-    block) with the prefix mask of a decode step, the profiler sees one
-    kernel per call, `decode_attention_mma`, and no merge kernel."""
+    """At the main-path shapes (qwen2.5-7b; zamba2-1.2b's shared block and
+    musicgen-large; qwen2-moe-a2.7b; qwen2-vl-2b, G=6) with the prefix
+    mask of a decode step, the profiler sees one kernel per call,
+    `decode_attention_mma`, and no merge kernel."""
     from torch.profiler import ProfilerActivity, profile
     q, k, v, _ = _mma_case(cuda, 1, G, Hkv, hd, S, seed=S)
     mask = torch.arange(S, device=cuda) <= 2048
@@ -520,6 +523,90 @@ def test_paged_scheduler_graph_replays_equal_plain_calls(cuda, kv_quant, K):
     assert graph_launches == 2 * K * cfg.n_layers
     assert plain_launches == K * cfg.n_layers * plain.decode_steps
     assert replayed == plain_launches
+
+
+def _moe_requests(cfg):
+    """Five sessions through three slots, slot 0's short: it frees while
+    slots 1 and 2 decode, so free lanes (token 0) route through the
+    experts and take capacity beside live ones."""
+    spec = [(40, 2), (70, 9), (55, 11), (33, 3), (47, 2)]
+    g = torch.Generator().manual_seed(7)
+    return [(f"s{i}", torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy(), new)
+            for i, (n, new) in enumerate(spec)]
+
+
+@pytest.mark.parametrize("paged,K", [(False, 1), (True, 1), (True, 4)])
+def test_moe_scheduler_graph_replays_equal_plain_calls(cuda, paged, K):
+    """A 2-layer qwen2-moe-a2.7b at full width (60 experts, bf16): the
+    scheduler's decode step captured once as a CUDA graph and replayed
+    gives the same event log and streams as the same scheduler making
+    plain calls, free lanes present; the MoE dispatch reads nothing back
+    to the host, so it captures; kernel 1 (contiguous) or 2 (paged)
+    runs once per layer and device step in the replays."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import SessionRequest, SlotScheduler, programs
+    cfg = get_config("qwen2-moe-a2.7b").replace(n_layers=2)
+    model = Model(cfg, decode_backend="cuda", device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    reqs = [SessionRequest(*r) for r in _moe_requests(cfg)]
+    kernel = "paged_decode_attention" if paged else "decode_attention"
+    runs = []
+    for capture in (True, False):
+        sched = SlotScheduler(model, params, n_slots=3, max_len=96, paged=paged,
+                              page_size=16, steps_per_tick=K)
+        sched._progs.capture = capture
+        for r in reqs:
+            sched.submit(r)
+        replayed = programs.replay_launches.get(kernel, 0)
+        res = sched.run()
+        runs.append((res, programs.replay_launches.get(kernel, 0) - replayed))
+    (graph, replayed), (plain, _) = runs
+    assert graph.events == plain.events
+    for r in reqs:
+        assert torch.equal(torch.as_tensor(graph.tokens_for(r.session_id)),
+                           torch.as_tensor(plain.tokens_for(r.session_id)))
+    assert graph.step_cache_size == 1
+    assert replayed == K * cfg.n_layers * plain.decode_steps
+    live = {}
+    free_below_live = False
+    for ev in graph.events:
+        if ev[0] == "admit":
+            live[ev[2]] = ev[1]
+        elif ev[0] == "finish":
+            live.pop(ev[2], None)
+        elif ev[0] == "token" and ev[2] > 0 and 0 not in live:
+            free_below_live = True
+    assert free_below_live
+
+
+def test_capture_collects_a_cycle_that_owns_a_graph(cuda):
+    """A reference cycle that owns a captured CUDA graph (as a scheduler
+    and its programs do), dropped just before another capture:
+    ``dispatch.capture`` collects it first.  Destroyed inside a capture
+    (the collector can run at any allocation), the old graph's reset is
+    a call a capture forbids, and the new capture fails."""
+    import gc
+
+    from repro_torch.core import dispatch
+
+    class Owner:
+        pass
+    owner = Owner()
+    owner.me = owner
+    y = torch.zeros(8, device=cuda)
+    owner.graph = dispatch.capture(lambda: y + 1, {"y": y})
+    del owner
+    x = torch.arange(8.0, device=cuda)
+
+    def step():
+        gc.collect()          # a collection that falls inside the capture
+        return x * 2
+    cap = dispatch.capture(step, {"x": x})
+    x.fill_(3.0)
+    cap.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(cap.output, torch.full((8,), 6.0, device=cuda))
 
 
 def _tier_requests(cfg):

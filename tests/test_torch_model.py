@@ -180,18 +180,15 @@ def test_cache_is_updated_in_place():
 
 
 def test_unported_paths_raise():
-    """The families still to port raise; the host tier and fault
-    injection are ported (tests/test_torch_kv_tiering.py,
-    test_torch_faults.py), and the tier refuses contiguous slots as the
-    reference does."""
+    """Every family is ported (tests/test_torch_moe.py,
+    test_torch_vlm_audio.py), and so are the host tier and fault
+    injection (tests/test_torch_kv_tiering.py, test_torch_faults.py);
+    the tier refuses contiguous slots as the reference does."""
     from repro_torch.serving import SlotScheduler
     cfg = _port_cfg("qwen2.5-3b")
     model = Model(cfg, device=CPU)
     with pytest.raises(NotImplementedError, match="contiguous slots"):
         SlotScheduler(model, None, n_slots=2, max_len=16, kv_tier="host")
-    for name in ("qwen2-moe-a2.7b", "qwen2-vl-2b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="family"):
-            Model(get_config(name).reduced(), device=CPU)
 
 
 @pytest.mark.parametrize("ring", [False, True])
