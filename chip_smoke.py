@@ -58,6 +58,16 @@ Phases, in order; each raises on failure and nothing catches:
     qwen2-vl-2b's width, R 1 and 2048); at D=2560
     also the profiler's device time per call and the time per call back
     to back with L2 cold (129 decode rows, or 8 prompts of 2048 rows).
+5b. RMSNorm's backward kernel (run after phase 6) against its plain
+    version (``rmsnorm_bwd_ref``), bf16 and f32, D in {1536, 2048, 2560,
+    3584, 4096, 5120} x R in {1, 7, 2048, 4096}, with and without w: dx
+    within one bf16 spacing of the plain version's plus 1e-5 x max|dx|
+    (f32: 1e-5 x max|dx|), dw within one bf16 spacing plus 1e-3 x
+    max|dw| (a sum over R rows in another order; f32 1e-5); two calls
+    bit-equal; ptxas' registers of both backward kernels; at R=2048 and
+    D 2048 (qwen2.5-3b), 3584 and 1536: kernel, plain and device times
+    beside the profiler's device time of ``F.rms_norm``'s backward under
+    autograd (timed only).
  6. SSD-update kernel against its plain version with f32 and bf16
     x/B/C at the mamba2-2.7b (1,80,64,128) and zamba2-1.2b (1,64,64,64)
     decode shapes, grouped (3,8,16,32, G=2) and with dt*A near -1e4
@@ -197,20 +207,39 @@ Phases, in order; each raises on failure and nothing catches:
     embeddings with t/h/w positions) and musicgen-large (48 layers,
     tokens (1, 2048, 4), output (1, 32, 4)) as qwen2-moe's batch-1 cell.
     Its numbers go on a ``{"families": ...}`` line.
-18. the kernels line: one JSON object with every ported kernel's
-    numbers (all five: no TPU kernel is left to port; ``device_us`` and
+18. training (``repro_torch.training``).  (a) one train step at
+    qwen2.5-3b width, 2 layers, f32, weights drawn on the CPU and copied
+    over: the card's loss and grads (remat blocks; kernel 5 forward 4 a
+    layer + 1, its backward 2 a layer + 1) against the CPU's, every leaf
+    within 1e-4 x max|g|, the norm weights' grads nonzero.  (b) the
+    reduced config through ``run_training`` with the captured step, a
+    ``Preemption`` at step 3: the restarted run's final loss bit-equal to
+    a clean run's (checkpoints under ``build/``, removed).  (c) full
+    width: qwen2.5-3b, 36 layers, bf16, batch 1, seq 2048, remat blocks,
+    AdamW: 3 warm-up and 10 timed eager steps, then the same 13 batches
+    from the same initial state through ``jit_train_step`` (one CUDA
+    graph a step); step p50 and spread per arm, tokens/s, MFU (6 N T /
+    step / 989e12), peak allocated memory, both arms' losses (finite and
+    equal step for step), kernel launches a step, the profiler's top
+    device ops of one eager step and the graph's busy share.  Its
+    numbers go on a ``{"training": ...}`` line.
+19. the kernels line: one JSON object with every ported kernel's
+    numbers (all five, and kernel 5's backward: no TPU kernel is left to
+    port; ``device_us`` and
     ``b2b_us`` for kernels 4 and 5, null for the others); ``launches`` sums
     the main paths that run the kernel and ``launches_by_path`` names
     each path's count (the tiered cells of phase 16 included); the int4
     row adds the M=2048 sums (``prefill_*``) and the prefill's launches
-    and walls.
-19. last line: ``{"ok": true, "device": {...}}``.
+    and walls.  ``rmsnorm_bwd`` (the backward, port-only) counts phase
+    18c's launches.
+20. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only kernels
 
 runs phases 1-6 only and prints the kernels line (launches null) without
 the ``ok`` line: the quick call for tuning a kernel.  ``--only families``
-runs phases 1, 9c and 17 only (no kernels line, no ``ok`` line).
+runs phases 1, 9c and 17 only, ``--only train`` phases 1, 5b and 18 (no
+kernels line, no ``ok`` line).
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Times are CUDA-event medians of 30 runs
@@ -913,6 +942,110 @@ def check_rmsnorm(dev, timer):
     return row
 
 
+NORM_BWD_ROWS = (1, 7, 2048, 4096)   # a decode row, ragged, a prompt, two prompts
+NORM_BWD_TIMED = (2048, 3584, 1536)  # qwen2.5-3b (the training path), qwen2.5-7b, qwen2-vl
+
+
+def bwd_close(out, want, dtype, what):
+    """The backward's tolerance: f32 within 1e-5 x max|plain|; bf16 (one
+    rounding of an f32 result) within one bf16 spacing of the plain
+    version's element, plus, for dx, 1e-5 x max|dx| where its two terms
+    cancel, and, for dw (a sum over R rows in another order), 1e-3 x
+    max|dw|.  Returns max_abs_err."""
+    o, w_ = out.float(), want.float()
+    err = (o - w_).abs()
+    scale = float(w_.abs().max())
+    if dtype == torch.float32:
+        ok = float(err.max()) <= 1e-5 * max(scale, 1e-30)
+    else:
+        floor = (1e-3 if what == "dw" else 1e-5) * scale
+        ok = bool((err <= w_.abs() * 2 ** -7 + floor).all())
+    if not ok:
+        raise AssertionError(f"rmsnorm_bwd {what} disagrees: max_abs_err "
+                             f"{float(err.max()):.3g}, max|plain| {scale:.3g}")
+    return float(err.max())
+
+
+def check_rmsnorm_bwd(dev, timer):
+    """Kernel 5's backward against ``rmsnorm_bwd_ref``; the row of the
+    kernels line at R=2048 D=2048 bf16 (qwen2.5-3b's norms)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops, ref
+    log("== phase 5b: RMSNorm backward, kernel vs plain (dx within one bf16 "
+        "spacing + 1e-5 x max|dx|, f32 1e-5 x max|dx|; dw one bf16 spacing + "
+        "1e-3 x max|dw|, f32 1e-5); two calls bit-equal")
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in NORM_WIDTHS:
+            for R in NORM_BWD_ROWS:
+                for parametric in (True, False):
+                    x, w = norm_case(dev, dtype, R, D, 3 * R + D, parametric)
+                    dy = norm_case(dev, dtype, R, D, 5 * R + D)[0] / 3
+                    dx, dw = ops.rmsnorm_bwd(x, w, dy)
+                    dx2, dw2 = ops.rmsnorm_bwd(x, w, dy)
+                    torch.cuda.synchronize()
+                    if not torch.equal(dx, dx2) or (w is not None
+                                                    and not torch.equal(dw, dw2)):
+                        raise AssertionError(f"rmsnorm_bwd R={R} D={D} {dtype}: "
+                                             "two calls differ")
+                    want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy)
+                    worst = max(worst, bwd_close(dx, want_dx, dtype, "dx"))
+                    if w is not None:
+                        worst = max(worst, bwd_close(dw, want_dw, dtype, "dw"))
+                    elif dw is not None:
+                        raise AssertionError("rmsnorm_bwd returned dw without w")
+        log(f"  {str(dtype)[6:]:8s} D in {NORM_WIDTHS} x R in {NORM_BWD_ROWS}, with "
+            f"and without w: ok, repeat calls bit-equal (largest max_abs_err so far "
+            f"{worst:.3g})")
+    log_kernel_build("rmsnorm", "rmsnorm_bwd_kernel")
+    log_kernel_build("rmsnorm", "rmsnorm_dw_reduce")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    row, extra = None, {}
+    for D in NORM_BWD_TIMED:
+        R = 2048
+        x, w = norm_case(dev, torch.bfloat16, R, D, 11 * D)
+        dy = norm_case(dev, torch.bfloat16, R, D, 13 * D)[0] / 3
+        dx, dw = ops.rmsnorm_bwd(x, w, dy)
+        want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy)
+        err = max(bwd_close(dx, want_dx, torch.bfloat16, "dx"),
+                  bwd_close(dw, want_dw, torch.bfloat16, "dw"))
+        ms = timer(lambda: ops.rmsnorm_bwd(x, w, dy))
+        plain_ms = timer(lambda: ref.rmsnorm_bwd_ref(x, w, dy))
+        dev_us = timer.device_us(lambda: ops.rmsnorm_bwd(x, w, dy))
+        xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+        y = F.rms_norm(xr, (D,), wr, eps=1e-6)
+        lib_us = timer.device_us(
+            lambda: torch.autograd.grad(y, (xr, wr), dy, retain_graph=True))
+        lib_ms = lib_us / 1e3
+        nbytes = 3 * R * D * 2 + 2 * D * 2      # x, dy read, dx written; w, dw
+        b_ms, b_by = bound_ms(nbytes, 10 * R * D, torch.float32)
+        log(f"  times, bf16 R={R} D={D} (plan {ops.bwd_plan(R, D, 2, n_sm)}): kernel "
+            f"{ms:.4f} ms (device {dev_us:.2f} us), plain {plain_ms:.4f} ms, "
+            f"F.rms_norm backward {lib_us:.2f} us device (profiler), bound "
+            f"{b_ms:.6f} ms ({b_by}: {nbytes} bytes)")
+        if D == 2048:
+            row = dict(name="rmsnorm_bwd", route="cuda",
+                       source="src/repro_torch/csrc/rmsnorm.cu",
+                       replaces="src/repro/kernels/rmsnorm/rmsnorm.py:24 (its "
+                                "gradient; the reference differentiates its jnp "
+                                "RMSNorm, src/repro/models/common.py:37)",
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms, device_us=dev_us,
+                       b2b_us=None,
+                       shape="bf16 R=2048 D=2048 with w (qwen2.5-3b training, every "
+                             "norm); library_ms: profiler device time of "
+                             "F.rms_norm's backward under autograd; d3584_*, "
+                             "d1536_*: D 3584 and 1536 at R=2048")
+        else:
+            extra.update({f"d{D}_ms": ms, f"d{D}_plain_ms": plain_ms,
+                          f"d{D}_bound_ms": b_ms, f"d{D}_library_ms": lib_ms,
+                          f"d{D}_device_us": dev_us})
+        del xr, wr, y
+    row.update(extra)
+    return row
+
+
 # ---------------------------------------------------------------- phase 6
 def ssd_bytes(B, H, P, N, G, xbytes=4):
     """Each input read once, each output written once: h in and h' out
@@ -1047,11 +1180,9 @@ def prefill_wall(engine, batch, max_len, reps=3):
 def zero_counts():
     """Every kernel wrapper's ``launches`` and the capture / replay
     tallies set to 0, just before a main path is driven."""
-    import importlib
     from repro_torch.core import dispatch
-    from repro_torch.kernels._build import SOURCES
-    for name in SOURCES:
-        importlib.import_module(f"repro_torch.kernels.{name}.ops").launches = 0
+    from repro_torch.kernels import zero_launch_counts
+    zero_launch_counts()
     dispatch.captured_launches.clear()
     dispatch.replay_launches.clear()
 
@@ -2616,6 +2747,297 @@ def families_full_width(dev):
     return counts, out
 
 
+# ---------------------------------------------------------------- phase 18
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 2048, 3, 10
+NORM_KEYS = ("norm1", "norm2", "final_norm")
+
+
+def check_train_card_vs_cpu(dev):
+    """18a: one train step's loss and grads at qwen2.5-3b width (2 layers,
+    f32, remat blocks on the card), weights drawn on the CPU and copied
+    over, against the CPU's (the plain versions of kernel 5 and of its
+    backward).  The norms and biases are moved off their 1 / 0 init."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.models.model import Model
+    from repro_torch.training import DataCursor, synthetic_batch, trainable
+    from repro_torch.training.tree import leaves_with_path, path_key
+    seq = 128
+    log(f"== phase 18a: one train step, card against CPU: {TRAIN_ARCH} width, 2 "
+        f"layers, f32, batch 1, seq {seq} (grads per leaf within 1e-4 x max|g|)")
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=2, dtype="float32")
+    cpu_model = Model(cfg, device="cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(6)
+    for path, t in leaves_with_path(cpu_params):
+        if path[-1] in NORM_KEYS + ("bq", "bk", "bv"):
+            t.add_(0.1 * torch.randn(t.shape, generator=g))
+    batch = synthetic_batch(cfg, DataCursor(5, 0), batch=1, seq_len=seq)
+    out = {}
+    for label, model, params in (
+            ("cpu", cpu_model, cpu_params),
+            ("cuda", Model(cfg, device=dev, remat="blocks"), to_device(cpu_params, dev))):
+        params = trainable(params)
+        b = {k: v.to(model.device) for k, v in batch.items()}
+        fwd0, bwd0 = rms_ops.launches, rms_ops.bwd_launches
+        loss, _ = model.loss(params, b)
+        leaves = leaves_with_path(params)
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        out[label] = (float(loss.detach()), {path_key(p): gr.float().cpu()
+                                    for (p, _), gr in zip(leaves, grads)},
+                      rms_ops.launches - fwd0, rms_ops.bwd_launches - bwd0)
+        del params, grads
+    (l_cpu, g_cpu, _, _), (l_cuda, g_cuda, fwd, bwd) = out["cpu"], out["cuda"]
+    worst, worst_key, norm_min = 0.0, None, float("inf")
+    for key, want in g_cpu.items():
+        rel = float((g_cuda[key] - want).abs().max()) / float(want.abs().max())
+        if rel > worst:
+            worst, worst_key = rel, key
+        if key.rsplit("/", 1)[-1] in NORM_KEYS:
+            norm_min = min(norm_min, float(g_cuda[key].abs().max()))
+    log(f"  loss cpu {l_cpu:.6f}, cuda {l_cuda:.6f}; {len(g_cpu)} grad leaves, worst "
+        f"max|diff| / max|g| {worst:.3g} ({worst_key}); smallest max|g| of a norm "
+        f"weight {norm_min:.3g}; kernel 5 on the card: {fwd} forward launches "
+        f"(remat: 2 a layer twice, and the final norm), {bwd} backward launches "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if worst > 1e-4 or abs(l_cuda - l_cpu) > 1e-5 * abs(l_cpu):
+        raise AssertionError("18a: the card's train step disagrees with the CPU's")
+    if not norm_min > 0:
+        raise AssertionError("18a: a norm weight got no gradient on the card")
+    if bwd != 2 * cfg.n_layers + 1 or fwd != 4 * cfg.n_layers + 1:
+        raise AssertionError(f"18a: kernel 5 launched {fwd} forward, {bwd} backward")
+    return dict(worst_rel=worst, loss_cpu=l_cpu, loss_cuda=l_cuda)
+
+
+def check_train_restart(dev):
+    """18b: the reduced config through run_training on the card (the
+    captured step), preempted at step 3 and restored from the step-2
+    checkpoint: the final loss must be bit-equal to a clean run's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.training import (AdamW, DataLoader, Preemption, jit_train_step,
+                                      make_train_step, run_training, trainable)
+    log(f"== phase 18b: {TRAIN_ARCH} reduced (bf16) through run_training on the "
+        "card, captured step, a Preemption at step 3, 6 steps, checkpoint every 2")
+    cfg = get_config(TRAIN_ARCH).reduced()
+    model = Model(cfg, device=dev)
+    opt = AdamW(lr=1e-3)
+
+    def run(ckpt_dir, hook=None):
+        def init():
+            params = trainable(model.init(torch.Generator(device=dev).manual_seed(0)))
+            return (params, opt.init(params))
+        return run_training(
+            train_step=jit_train_step(make_train_step(model, opt, remat="blocks")),
+            init_state=init, loader=DataLoader(cfg, batch=2, seq_len=64, seed=5,
+                                               device=dev),
+            ckpt_dir=ckpt_dir, total_steps=6, ckpt_every=2, failure_hook=hook)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+    armed = [True]
+
+    def boom(step):
+        if step == 3 and armed[0]:
+            armed[0] = False
+            raise Preemption(step)
+    try:
+        clean = run(f"{tmp}/clean")
+        faulty = run(f"{tmp}/faulty", boom)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = clean.metrics_history[-1]["loss"], faulty.metrics_history[-1]["loss"]
+    log(f"  clean losses {[round(m['loss'], 5) for m in clean.metrics_history]}; "
+        f"preempted run: {faulty.restarts} restart, {len(faulty.metrics_history)} "
+        f"steps run, final loss {b!r} vs clean {a!r}: "
+        f"{'bit-equal' if a == b else 'DIFFER'}")
+    if faulty.restarts != 1 or a != b:
+        raise AssertionError("18b: the restarted run's final loss differs")
+    return dict(final_loss=a, restarts=faulty.restarts)
+
+
+KERNEL_KINDS = (("kernel 5", ("rmsnorm",)), ("f32 GEMMs", ("f32f32", "sgemm")),
+                ("bf16 GEMMs", ("gemm", "nvjet", "cutlass")),
+                ("softmax", ("softmax",)), ("reductions", ("reduce",)),
+                ("elementwise and casts", ("elementwise", "copy", "fill")))
+
+
+def kernel_kind(name: str) -> str:
+    """The kind of a kernel, by its name: the first of KERNEL_KINDS whose
+    keys it holds (f32 GEMMs: the attention's f32 einsums)."""
+    low = name.lower()
+    return next((kind for kind, keys in KERNEL_KINDS if any(k in low for k in keys)),
+                "other")
+
+
+def top_device_ops(fn, n=15):
+    """One call of ``fn`` under torch.profiler: (kernel ms summed, kernels
+    launched, the n kernels with the most device time as (name, calls,
+    ms), ms by ``kernel_kind``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    kinds = {}
+    for e in events:
+        kind = kernel_kind(e.key)
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    return (total, sum(e.count for e in events),
+            [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in events[:n]],
+            kinds)
+
+
+def log_profile(label, prof):
+    total, count, top, kinds = prof
+    log(f"  {label}: {total:.2f} ms of kernels, {count} kernels; by kind: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    for name, calls, ms in top:
+        log(f"    {ms:9.3f} ms {calls:5d}x {name}")
+
+
+def event_ms(fn, reps=3) -> float:
+    """CUDA-event median (ms) of ``reps`` synchronised calls of ``fn``."""
+    ms = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+        del out
+    return statistics.median(ms)
+
+
+def spread(walls):
+    return dict(p50_ms=statistics.median(walls), min_ms=min(walls), max_ms=max(walls))
+
+
+def train_full_width(dev):
+    """18c: qwen2.5-3b at full width and depth in bf16, batch 1, seq 2048,
+    remat blocks: TRAIN_WARMUP + TRAIN_STEPS eager steps, then the same
+    batches from the same initial state through jit_train_step (the
+    first call a real step and the capture, the rest replays)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import GPU_H100
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.training import (AdamW, DataCursor, cosine_schedule,
+                                      jit_train_step, make_train_step,
+                                      synthetic_batch, trainable)
+    from repro_torch.training.tree import tree_leaves, tree_unflatten
+    free_card()
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    log(f"== phase 18c: training {TRAIN_ARCH} at full width (36 layers, bf16, random "
+        f"weights drawn on the card), batch 1, seq {TRAIN_SEQ}, remat blocks, AdamW; "
+        f"{TRAIN_WARMUP} + {TRAIN_STEPS} steps eager, then the same {n} batches "
+        "through jit_train_step (one CUDA graph a step)")
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg, device=dev)
+    opt = AdamW(lr=cosine_schedule(3e-4, 2, 4 * n))
+    step = make_train_step(model, opt, remat="blocks")
+
+    def init():
+        params = trainable(model.init(torch.Generator(device=dev).manual_seed(0)))
+        return (params, opt.init(params))
+    batches = [synthetic_batch(cfg, DataCursor(7, i), batch=1, seq_len=TRAIN_SEQ,
+                               device=dev) for i in range(n)]
+    out = {"tokens_per_step": TRAIN_SEQ}
+
+    def arm(fn, label):
+        state = init()
+        if "n_params" not in out:
+            out["n_params"] = sum(t.numel() for t in tree_leaves(state[0]))
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, walls, per_step = [], [], None
+        for i, b in enumerate(batches):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = fn(state, b)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            if i == 1:
+                per_step = {k: v - before[k] for k, v in launch_counts().items()
+                            if v != before[k]}
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        res = dict(spread(walls[TRAIN_WARMUP:]), first_ms=walls[0], peak_gb=peak,
+                   losses=losses)
+        res["tok_s"] = TRAIN_SEQ / (res["p50_ms"] / 1e3)
+        res["mfu"] = 6 * out["n_params"] * TRAIN_SEQ / (res["p50_ms"] / 1e3) / \
+            GPU_H100.peak_flops_bf16
+        log(f"  {label}: step p50 {res['p50_ms']:.2f} ms (min {res['min_ms']:.2f}, max "
+            f"{res['max_ms']:.2f}, first {walls[0]:.1f}) over steps {TRAIN_WARMUP + 1}-{n}; "
+            f"{res['tok_s']:.1f} tokens/s, MFU {100 * res['mfu']:.2f}% (6 N T / step / "
+            f"989e12, N {out['n_params']}); peak allocated {peak:.2f} GB")
+        log(f"  {label} losses {[round(x, 5) for x in losses]}")
+        return state, res, per_step
+
+    state, out["eager"], per_step = arm(step, "eager")
+    out["eager_launches_per_step"] = per_step
+    log(f"  eager step's kernel launches: {per_step} (kernel 5 forward: 2 a layer, "
+        "recomputed under remat, and the final norm; backward: 2 a layer and the final)")
+    b = synthetic_batch(cfg, DataCursor(7, n), batch=1, seq_len=TRAIN_SEQ, device=dev)
+    prof = top_device_ops(lambda: step(state, b))
+    log_profile("profiled eager step", prof)
+    out["eager_kernel_ms"], out["eager_kernels"], out["eager_top_ops"], \
+        out["eager_ms_by_kind"] = prof
+    # the step's two halves alone: forward + backward, and the AdamW update
+    params, opt_state = state
+    leaves = tree_leaves(params)
+
+    def fwd_bwd():
+        loss, _ = model.loss(params, b)
+        return torch.autograd.grad(loss, leaves)
+    grads = tree_unflatten(params, list(fwd_bwd()))
+    out["fwd_bwd_ms"] = event_ms(fwd_bwd)
+    out["adamw_ms"] = event_ms(lambda: opt.update(grads, opt_state, params))
+    prof = top_device_ops(lambda: opt.update(grads, opt_state, params), n=6)
+    log(f"  forward + backward {out['fwd_bwd_ms']:.2f} ms, AdamW update "
+        f"{out['adamw_ms']:.2f} ms (CUDA events, median of 3)")
+    log_profile("profiled AdamW update", prof)
+    out["adamw_kernel_ms"], out["adamw_kernels"], _, out["adamw_ms_by_kind"] = prof
+    del state, params, opt_state, leaves, grads
+    free_card()
+    jstep = jit_train_step(step)
+    state, out["graph"], _ = arm(jstep, "graph (jit_train_step)")
+    total = top_device_ops(lambda: jstep(state, b))[0]
+    out["graph_kernel_ms"] = total
+    out["graph_busy"] = total / out["graph"]["p50_ms"]
+    log(f"  profiled graph replay: {total:.2f} ms of kernels, busy "
+        f"{100 * out['graph_busy']:.1f}% of the graph p50")
+    le, lg = out["eager"]["losses"], out["graph"]["losses"]
+    if not all(np.isfinite(le)) or le != lg:
+        raise AssertionError(f"18c: losses not finite or unequal: {le} vs {lg}")
+    log(f"  losses of both arms finite and equal, step for step ({n} steps)")
+    del state, jstep
+    free_card()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 18c took {out['seconds']:.1f} s")
+    return out
+
+
+def training(dev):
+    """Phase 18; returns (kernel launches of the full-width run, by
+    kernel, the phase's numbers)."""
+    out = {"card_vs_cpu": check_train_card_vs_cpu(dev),
+           "restart": check_train_restart(dev)}
+    zero_counts()
+    out["full_width"] = train_full_width(dev)
+    return launched(), out
+
+
 # ---------------------------------------------------------------- main
 PENDING = []    # TPU kernels still to port: none
 
@@ -2633,11 +3055,13 @@ def kernels_line(rows) -> str:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "families"],
+    ap.add_argument("--only", choices=["kernels", "families", "train"],
                     help="kernels: phases 1-6 and the kernels line (launches "
                          "null), no main path and no ok line; families: "
                          "phases 1, 9c and 17 (the moe, vlm and audio "
-                         "families), no kernels line and no ok line")
+                         "families), no kernels line and no ok line; train: "
+                         "phases 1, 5b and 18 (training), no kernels line "
+                         "and no ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2653,10 +3077,18 @@ def main(argv=None) -> int:
         log(smi.splitlines()[0])
         return 0
     timer = Timer(dev)
+    if args.only == "train":
+        check_rmsnorm_bwd(dev, timer)
+        del timer
+        _, train = training(dev)
+        log(json.dumps({"training": train}))
+        log(smi.splitlines()[0])
+        return 0
     rows = [check_decode_attention(dev, timer), check_int4_matmul(dev, timer)]
     rows += check_paged_decode_attention(dev, timer)
-    rows += [check_rmsnorm(dev, timer), check_ssd_update(dev, timer)]
-    for row in rows[:-2]:     # device_us and b2b_us: measured for kernels 4 and 5
+    rows += [check_rmsnorm(dev, timer), check_ssd_update(dev, timer),
+             check_rmsnorm_bwd(dev, timer)]
+    for row in rows:     # device_us and b2b_us: measured for kernels 4 and 5
         row.setdefault("device_us", None)
         row.setdefault("b2b_us", None)
     del timer
@@ -2682,6 +3114,7 @@ def main(argv=None) -> int:
     tier_counts, tier = tiered_serving(dev, prefill["prefill_wall_bf16_ms"])
     torch.cuda.empty_cache()
     fc, fam = families_full_width(dev)
+    tc, train = training(dev)
     dense, int4 = "qwen2.5-7b batch-1 bf16", "qwen2.5-7b batch-1 int4"
     paged = ("qwen2.5-7b paged bf16 KV", "qwen2.5-7b paged int8 KV")
     tiered = ("qwen2.5-7b tiered paged bf16 KV", "qwen2.5-7b tiered paged int8 KV")
@@ -2690,6 +3123,7 @@ def main(argv=None) -> int:
     moe, moe_q, moe_p = ("qwen2-moe-a2.7b batch-1 bf16", "qwen2-moe-a2.7b batch-1 int4",
                          "qwen2-moe-a2.7b paged bf16 KV")
     vl, audio = "qwen2-vl-2b batch-1", "musicgen-large batch-1"
+    trained = "qwen2.5-3b training bf16 (eager and captured steps)"
     by_path = [
         {dense: da_launches, zamba: ssm[1]["decode_attention"],
          moe: fc["moe"]["decode_attention"], moe_q: fc["moe_int4"]["decode_attention"],
@@ -2703,8 +3137,9 @@ def main(argv=None) -> int:
          mamba: ssm[0]["rmsnorm"], zamba: ssm[1]["rmsnorm"],
          moe: fc["moe"]["rmsnorm"], moe_q: fc["moe_int4"]["rmsnorm"],
          moe_p: fc["moe_paged"]["rmsnorm"], vl: fc["vlm"]["rmsnorm"],
-         audio: fc["audio"]["rmsnorm"]},
-        {mamba: ssm[0]["ssd_update"], zamba: ssm[1]["ssd_update"]}]
+         audio: fc["audio"]["rmsnorm"], trained: tc["rmsnorm"]},
+        {mamba: ssm[0]["ssd_update"], zamba: ssm[1]["ssd_update"]},
+        {trained: tc["rmsnorm_bwd"]}]
     for row, counts in zip(rows, by_path):
         row["launches"] = sum(counts.values())
         row["launches_by_path"] = counts
@@ -2713,6 +3148,7 @@ def main(argv=None) -> int:
     log(json.dumps({"dispatch_ab": ab}))
     log(json.dumps({"host_tier": tier}))
     log(json.dumps({"families": fam}))
+    log(json.dumps({"training": train}))
     log(smi.splitlines()[0])
     print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {

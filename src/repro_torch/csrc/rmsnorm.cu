@@ -239,3 +239,237 @@ extern "C" int rmsnorm_launch(const void* x, long long x_stride,
   return launch<float>(x, x_stride, w, y, R, D, eps, warps_per_row,
                        rows_per_block, chunks, grid, st);
 }
+
+// ---------------------------------------------------------------- backward
+//
+// The gradient of the RMSNorm above (port-only: the TPU reference has no
+// backward kernel, JAX differentiates its jnp RMSNorm).  For x (R, D),
+// dy (R, D) and w (D,) or null, with the math in f32:
+//
+//   r  = rsqrt(mean(x^2) + eps)                     per row, from x
+//   g  = dy * w  (dy when w is null)
+//   dx = r g - x r^3 mean(g x)                      rounded once to T
+//   dw = sum over rows of dy x r                    f32, then T
+//
+// What bounds it: bytes (x and dy read once, dx written once: 3 R D
+// elements; dw and its partials are D-sized per block).  The rows are
+// the forward's: a block of `warps` warps owns one row at a time and
+// holds it in registers from its one read (each lane C 16-byte chunks of
+// x, of dy and of w, neighbouring lanes on neighbouring chunks), reduces
+// the row's two sums (x^2 and g x) by shuffles and one shared-memory step
+// between the warps, and writes dx from the registers.  r is recomputed
+// from x: no statistics are saved by the forward.  Block b walks rows b,
+// b + grid, ... and keeps its part of dw in registers, in row order; it
+// writes that part as row b of an f32 (grid, D) buffer.  A second kernel
+// adds the grid parts of each column in a fixed order.  No atomics: two
+// calls, and a graph replay, give the same bits.
+
+namespace {
+
+constexpr int kBwdMaxChunks = 4;   // 16-byte chunks of a row a lane holds
+constexpr int kBwdMaxWarps = 16;   // warps of a row (512 threads)
+constexpr int kReduceRows = 16;    // threadIdx.y of the dw reduction
+
+template <typename T, int C>
+__global__ void __launch_bounds__(32 * kBwdMaxWarps) rmsnorm_bwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ dy,
+    const T* __restrict__ w, T* __restrict__ dx, float* __restrict__ dw_part,
+    int R, int D, float eps) {
+  constexpr int V = Vec<T>::n;
+  __shared__ float2 part[kBwdMaxWarps];   // the warps' (sum x^2, sum g x)
+  const int nvec = D / V;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  const int span = blockDim.x;            // lanes of a row
+  const int lo = threadIdx.x;             // the lane's first chunk
+
+  uint4 wv[C];
+  float acc[C][V];                        // this block's part of dw
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    if (w != nullptr && lo + j * span < nvec)
+      wv[j] = ld_row(w + (size_t)(lo + j * span) * V);
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[j][k] = 0.f;
+  }
+  for (int r = blockIdx.x; r < R; r += gridDim.x) {
+    const T* xr = x + (size_t)r * D;
+    const T* dyr = dy + (size_t)r * D;
+    uint4 xv[C], dv[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (lo + j * span < nvec) {
+        xv[j] = ld_row(xr + (size_t)(lo + j * span) * V);
+        dv[j] = ld_row(dyr + (size_t)(lo + j * span) * V);
+      }
+    }
+    float ss = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (lo + j * span < nvec) {
+        float f[V], d[V];
+        unpack<T>(xv[j], f);
+        unpack<T>(dv[j], d);
+        if (w != nullptr) {
+          float fw[V];
+          unpack<T>(wv[j], fw);
+#pragma unroll
+          for (int k = 0; k < V; ++k) d[k] *= fw[k];
+        }
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          ss += f[k] * f[k];
+          sgx += d[k] * f[k];
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      sgx += __shfl_xor_sync(0xffffffffu, sgx, off);
+    }
+    if (warps > 1) {   // one shared-memory step between the row's warps
+      if (lane == 0) part[warp] = make_float2(ss, sgx);
+      __syncthreads();
+      const float2 p = lane < warps ? part[lane] : make_float2(0.f, 0.f);
+      ss = p.x;
+      sgx = p.y;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        ss += __shfl_xor_sync(0xffffffffu, ss, off);
+        sgx += __shfl_xor_sync(0xffffffffu, sgx, off);
+      }
+      __syncthreads();   // every warp has read part before the next row
+    }
+    const float rr = 1.f / sqrtf(ss / (float)D + eps);
+    const float c = rr * rr * rr * (sgx / (float)D);
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int i = lo + j * span;
+      if (i < nvec) {
+        float f[V], d[V], o[V];
+        unpack<T>(xv[j], f);
+        unpack<T>(dv[j], d);
+        if (w != nullptr) {
+          float fw[V];
+          unpack<T>(wv[j], fw);
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            o[k] = rr * (d[k] * fw[k]) - f[k] * c;
+            acc[j][k] += d[k] * f[k] * rr;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < V; ++k) o[k] = rr * d[k] - f[k] * c;
+        }
+        st_row(dx + (size_t)r * D + (size_t)i * V, pack<T>(o));
+      }
+    }
+  }   // rows
+  if (w != nullptr) {
+    float* dst = dw_part + (size_t)blockIdx.x * D;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int i = lo + j * span;
+      if (i < nvec) {
+#pragma unroll
+        for (int k = 0; k < V; k += 4)
+          *reinterpret_cast<float4*>(dst + (size_t)i * V + k) =
+              make_float4(acc[j][k], acc[j][k + 1], acc[j][k + 2], acc[j][k + 3]);
+      }
+    }
+  }
+}
+
+// dw[j] = sum over p of part[p][j], p in a fixed order: thread (tx, ty)
+// of a (32, kReduceRows) block adds p = ty, ty + kReduceRows, ... of
+// column blockIdx.x * 32 + tx, then the kReduceRows sums are added in ty
+// order.
+template <typename T>
+__global__ void __launch_bounds__(32 * kReduceRows) rmsnorm_dw_reduce(
+    const float* __restrict__ part, int P, int D, T* __restrict__ dw) {
+  __shared__ float sums[kReduceRows][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int j = blockIdx.x * 32 + tx;
+  float s = 0.f;
+  if (j < D) {
+#pragma unroll 4
+    for (int p = ty; p < P; p += kReduceRows) s += part[(size_t)p * D + j];
+  }
+  sums[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && j < D) {
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kReduceRows; ++q) t += sums[q][tx];
+    from_f(dw + j, t);
+  }
+}
+
+template <typename T, int C>
+int launch_bwd_c(const void* x, const void* dy, const void* w, void* dx,
+                 void* dw, float* dw_part, int R, int D, float eps,
+                 int warps, int grid, cudaStream_t st) {
+  rmsnorm_bwd_kernel<T, C><<<grid, 32 * warps, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<const T*>(w), static_cast<T*>(dx), dw_part, R, D, eps);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0 || w == nullptr) return rc;
+  rmsnorm_dw_reduce<T><<<(D + 31) / 32, dim3(32, kReduceRows), 0, st>>>(
+      dw_part, grid, D, static_cast<T*>(dw));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* dy, const void* w, void* dx,
+               void* dw, void* dw_part, int R, int D, float eps, int warps,
+               int chunks, int grid, cudaStream_t st) {
+  constexpr int V = Vec<T>::n;
+  const auto misaligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (D % V || misaligned(x) || misaligned(dy) || misaligned(dx))
+    return (int)cudaErrorInvalidValue;
+  if (w != nullptr && (dw == nullptr || dw_part == nullptr || misaligned(w) ||
+                       misaligned(dw_part)))
+    return (int)cudaErrorInvalidValue;
+  if (chunks < 1 || chunks > kBwdMaxChunks || warps < 1 ||
+      warps > kBwdMaxWarps || grid < 1 || 32LL * warps * chunks < D / V)
+    return (int)cudaErrorInvalidValue;
+  float* part = static_cast<float*>(dw_part);
+#define NORM_BWD_LAUNCH(C)                                                   \
+  case C:                                                                    \
+    return launch_bwd_c<T, C>(x, dy, w, dx, dw, part, R, D, eps, warps, grid, \
+                              st)
+  switch (chunks) {
+    NORM_BWD_LAUNCH(1);
+    NORM_BWD_LAUNCH(2);
+    NORM_BWD_LAUNCH(3);
+    NORM_BWD_LAUNCH(4);
+  }
+#undef NORM_BWD_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x, dy, dx: R x D contiguous; w, dw: D elements or both null; dw_part: an
+// f32 (grid, D) scratch buffer when w is given (the blocks' parts of dw).
+// D must be a multiple of 16 / sizeof(T) and every pointer 16-byte
+// aligned.  The plan (bwd_plan in kernels/rmsnorm/ops.py): `warps` warps
+// own a row, each lane `chunks` 16-byte chunks of it, `grid` blocks.
+// Launches on `stream` (two kernels when w is given); returns the
+// cudaError_t of the launches.
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* dy,
+                                  const void* w, void* dx, void* dw,
+                                  void* dw_part, int R, int D, float eps,
+                                  int is_bf16, int warps, int chunks,
+                                  int grid, void* stream) {
+  if (R < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_bwd<__nv_bfloat16>(x, dy, w, dx, dw, dw_part, R, D, eps,
+                                     warps, chunks, grid, st);
+  return launch_bwd<float>(x, dy, w, dx, dw, dw_part, R, D, eps, warps,
+                           chunks, grid, st);
+}

@@ -1,19 +1,28 @@
-"""Wrapper for the RMSNorm kernel (``csrc/rmsnorm.cu``).
+"""Wrappers for the RMSNorm kernels (``csrc/rmsnorm.cu``): the forward
+and its gradient.
 
 A CUDA tensor launches the kernel, or the wrapper raises; a CPU tensor
-takes the plain version in ``ref.py``.  ``launches`` counts kernel
-launches (one per call that reached the card; a call recorded into a
-CUDA graph counts once, at capture).  The kernel launches on the current
-stream and the wrapper allocates only the output, so a call can be
-captured into a CUDA graph.  How the kernel spreads rows over warps,
-blocks and the grid is ``norm_plan``'s, from the shapes and the SM count.
+takes the plain version in ``ref.py``.  ``launches`` counts forward
+launches and ``bwd_launches`` backward ones (one per call that reached
+the card; a call recorded into a CUDA graph counts once, at capture).
+The kernels launch on the current stream and the wrappers allocate only
+the outputs and the backward's scratch, so a call can be captured into a
+CUDA graph.  How the forward spreads rows over warps, blocks and the
+grid is ``norm_plan``'s, the backward's ``bwd_plan``'s, from the shapes
+and the SM count.
+
+``rmsnorm`` is differentiable: under grad mode, when x or w requires
+grad, it runs through ``RMSNormFunction`` (the forward kernel, and the
+backward kernel for the gradient); otherwise (``inference_mode``,
+``no_grad``, or no input that requires grad) it launches the forward
+kernel directly.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,7 +35,12 @@ PROMPT_CHUNKS = 5     # the most a lane holds on prompt rows
 PROMPT_THREADS = 256  # threads of a block of prompt rows
 BLOCKS_PER_SM = 2     # prompt blocks the grid puts on each SM
 
+BWD_MAX_CHUNKS = 4    # 16-byte chunks of a row a backward lane holds
+BWD_MAX_WARPS = 16    # warps of a backward row (kBwdMaxWarps)
+BWD_BLOCKS_PER_SM = 2  # backward blocks the grid puts on each SM
+
 launches = 0
+bwd_launches = 0
 
 
 class NormPlan(NamedTuple):
@@ -101,6 +115,9 @@ def _lib() -> ctypes.CDLL:
     lib.rmsnorm_launch.argtypes = [p, ctypes.c_longlong, p, p, i, i,
                                    ctypes.c_float, i, i, i, i, i, p]
     lib.rmsnorm_launch.restype = i
+    lib.rmsnorm_bwd_launch.argtypes = [p, p, p, p, p, p, i, i, ctypes.c_float,
+                                       i, i, i, i, p]
+    lib.rmsnorm_bwd_launch.restype = i
     return lib
 
 
@@ -123,7 +140,18 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
     x * rsqrt(mean(x^2) + eps) * w in x's shape and dtype, computed in
     f32.  A strided x whose rows share one stride is read in place.  On
     the card D and the row stride must be multiples of 16 bytes and a row
-    at most 32 KB (D 16384 bf16, 8192 f32)."""
+    at most 32 KB (D 16384 bf16, 8192 f32).  Differentiable in x and w
+    (``RMSNormFunction``) under grad mode."""
+    if torch.is_grad_enabled() and (x.requires_grad or (
+            w is not None and w.requires_grad)):
+        return RMSNormFunction.apply(x, w, eps)
+    return _forward(x, w, eps)
+
+
+def _forward(x: torch.Tensor, w: Optional[torch.Tensor],
+             eps: float) -> torch.Tensor:
+    """The forward on x's device: the kernel on the card, the plain
+    version on the CPU."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
     if x.device.type != "cuda":
@@ -155,3 +183,91 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
     global launches
     launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(R: int, D: int, itemsize: int, n_sm: int) -> Tuple[int, int, int]:
+    """(warps, chunks, grid) of the backward kernel for R rows of D
+    elements of ``itemsize`` bytes on n_sm SMs: a block of ``warps``
+    warps owns one row at a time, each lane holding at most 2 of its
+    16-byte chunks where 16 warps allow it (at most BWD_MAX_CHUNKS), and
+    the grid has at most BWD_BLOCKS_PER_SM blocks an SM, each walking
+    rows ``grid`` apart.  Raises ValueError for a row of more than 2048
+    chunks (D 16384 bf16, 8192 f32)."""
+    nvec = D * itemsize // 16
+    warps = min(BWD_MAX_WARPS, max(1, math.ceil(nvec / 64)))
+    chunks = math.ceil(nvec / (32 * warps))
+    if chunks > BWD_MAX_CHUNKS:
+        raise ValueError(f"rows of {nvec} 16-byte chunks do not fit "
+                         f"{BWD_MAX_WARPS} warps of at most {BWD_MAX_CHUNKS} "
+                         "chunks a lane")
+    return warps, chunks, min(R, n_sm * BWD_BLOCKS_PER_SM)
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: Optional[torch.Tensor], dy: torch.Tensor,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The gradient of ``rmsnorm`` at x (..., D), w (D,) or None, for the
+    output's gradient dy (x's shape): (dx in x's shape and dtype, dw in
+    w's dtype or None), computed in f32 (``ref.rmsnorm_bwd_ref``'s
+    formulas).  On the card: the backward kernel, then (with w) the
+    fixed-order sum of its blocks' parts of dw; no atomics, so repeated
+    calls give the same bits.  x and dy are read contiguous (copied
+    first when they are not)."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm_bwd_ref(x, w, dy, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no rmsnorm_bwd for device {x.device}")
+    _check(x, w)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype} on x's device; "
+                         f"got {tuple(dy.shape)} {dy.dtype} {dy.device}")
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D).contiguous()
+    dy2 = dy.reshape(-1, D).contiguous()
+    R = x2.shape[0]
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    dw = None if w is None else torch.empty_like(w)
+    if R == 0:
+        if dw is not None:
+            dw.zero_()
+        return dx, dw
+    per16 = 16 // x.element_size()
+    if D % per16 or any(t.data_ptr() % 16 for t in (x2, dy2)):
+        raise ValueError(f"kernel takes 16-byte aligned rows: D a multiple of "
+                         f"{per16}, x and dy 16-byte aligned; got D={D}")
+    warps, chunks, grid = bwd_plan(R, D, x.element_size(),
+                                   _build.sm_count(x.device.index))
+    part = (None if w is None else
+            torch.empty((grid, D), dtype=torch.float32, device=x.device))
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = lib.rmsnorm_bwd_launch(
+            x2.data_ptr(), dy2.data_ptr(), None if w is None else w.data_ptr(),
+            dx.data_ptr(), None if dw is None else dw.data_ptr(),
+            None if part is None else part.data_ptr(), R, D, eps,
+            int(x.dtype == torch.bfloat16), warps, chunks, grid,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "rmsnorm_bwd")
+    global bwd_launches
+    bwd_launches += 1
+    return dx, dw
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """``rmsnorm`` with its gradient: forward ``_forward`` (the kernel on
+    the card, ``ref.rmsnorm_ref`` on the CPU), backward ``rmsnorm_bwd``
+    (the backward kernel on the card, ``ref.rmsnorm_bwd_ref`` on the
+    CPU).  Saves x and w; r is recomputed from x in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, w)
+        return _forward(x, w, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy, ctx.eps)
+        return dx, dw, None

@@ -1,4 +1,5 @@
-"""Shared model primitives: norms, RoPE / M-RoPE, MLPs, init helpers.
+"""Shared model primitives: norms, RoPE / M-RoPE, MLPs, the loss, init
+helpers.
 
 Port of ``repro.models.common``.  Params are nested dicts of tensors;
 every init function draws from an explicit ``torch.Generator`` on the
@@ -134,3 +135,21 @@ def mlp_forward(p: Params, x: torch.Tensor, gated: bool) -> torch.Tensor:
     else:
         h = F.gelu(matmul(x, p["up"]), approximate="tanh")   # jax.nn.gelu's default
     return matmul(h, p["down"])
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean next-token CE; logits (..., V) upcast to f32; labels (...)
+    (the audio family's (B, S, K, V) logits with (B, S, K) labels too).
+    ``z_loss`` adds z_loss * mean(logsumexp^2)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.take_along_dim(lf, labels.long()[..., None], dim=-1)[..., 0]
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(lse ** 2)
+    return loss

@@ -6,6 +6,7 @@ Port of ``repro.models.model`` with the same API, params passed in:
     m = Model(cfg, device="cuda")
     params = m.init(torch.Generator(device="cuda").manual_seed(0))
     logits, aux = m.forward(params, batch)
+    loss, metrics = m.loss(params, batch)            # train (Model(remat=...))
     cache = m.init_cache(batch_size, max_len)        # or slotted / paged,
     logits, cache = m.prefill(params, batch, cache)  # int8 KV
     logits, cache = m.decode_step(params, cache, tokens)
@@ -35,14 +36,15 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dispatch import StepProgram
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
-from repro_torch.models.common import (apply_norm, apply_rope, embed_init,
-                                       init_mlp, init_norm, make_angle_fn,
-                                       mlp_forward)
+from repro_torch.models.common import (apply_norm, apply_rope, cross_entropy,
+                                       embed_init, init_mlp, init_norm,
+                                       make_angle_fn, mlp_forward)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -59,12 +61,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 ATTENTION_FAMILIES = ("dense", "vlm", "audio", "moe")
+REMAT = ("none", "blocks", "full")
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 class Model:
     def __init__(self, cfg: ArchConfig, *, decode_backend: str = "cuda",
-                 ssd_chunk: int = mamba2.DEFAULT_CHUNK, device=None):
+                 ssd_chunk: int = mamba2.DEFAULT_CHUNK, device=None,
+                 remat: str = "none"):
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"the {cfg.family!r} family is not ported yet; the port "
@@ -72,9 +76,12 @@ class Model:
         if decode_backend not in attn.DECODE_BACKENDS:
             raise ValueError(f"decode_backend must be one of "
                              f"{attn.DECODE_BACKENDS}, got {decode_backend!r}")
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
         self.cfg = cfg
         self.decode_backend = decode_backend
         self.ssd_chunk = ssd_chunk
+        self.remat = remat   # none | blocks | full (checkpoint each layer body)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 products in full f32, as the reference computes them
@@ -83,6 +90,21 @@ class Model:
             torch.backends.cudnn.allow_tf32 = False
         self.angle_fn = make_angle_fn(cfg, self.device) if cfg.n_heads else None
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def _maybe_remat(self, body):
+        """Block-level rematerialisation (the reference's ``_maybe_remat``):
+        with remat "blocks" or "full" under grad mode, a layer body keeps
+        only its inputs and recomputes its internals in the backward.
+        Non-reentrant checkpointing, without the RNG state: a forward
+        draws no random numbers, and reading the RNG state is not allowed
+        while a CUDA graph is captured."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return body
+
+        def run(*args):
+            return checkpoint(body, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return run
 
     # ------------------------------------------------------------------
     # init
@@ -210,12 +232,14 @@ class Model:
             return self._hybrid_backbone(params, x, angles, collect_cache)
         caches = []
         aux = 0.0
+        attn_body = self._maybe_remat(self._attn_block_full)
+        mamba_body = self._maybe_remat(self._mamba_block_full)
         for bp in params["blocks"]:
             if cfg.family == "ssm":
-                x, h_fin, conv = self._mamba_block_full(bp, x)
+                x, h_fin, conv = mamba_body(bp, x)
                 layer_cache = (h_fin, conv)
             else:
-                x, aux_l, layer_cache = self._attn_block_full(bp, x, angles)
+                x, aux_l, layer_cache = attn_body(bp, x, angles)
                 aux = aux + aux_l
             if collect_cache:
                 caches.append(layer_cache)
@@ -232,11 +256,13 @@ class Model:
         cfg = self.cfg
         sp = params["shared_attn"]
         states, kvs = [], []
+        # only the mamba bodies are rematerialised, as in the reference
+        mamba_body = self._maybe_remat(self._mamba_block_full)
         for g0, g1 in self._hybrid_groups():
             x, _, kv = self._attn_block_full(sp, x, angles)
             kvs.append(kv)
             for bp in params["blocks"][g0:g1]:
-                x, h_fin, conv = self._mamba_block_full(bp, x)
+                x, h_fin, conv = mamba_body(bp, x)
                 states.append((h_fin, conv))
         return x, 0.0, ((states, kvs) if collect_cache else None)
 
@@ -244,6 +270,19 @@ class Model:
         x, aux, _ = self.backbone(params, batch)
         x = apply_norm(x, params["final_norm"])
         return self.lm_logits(params, x), aux
+
+    def loss(self, params: Params, batch: Dict, *, aux_weight: float = 0.01,
+             z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total, {"loss", "ce", "aux"}): the next-token cross-entropy of
+        ``batch["labels"]`` plus aux_weight times the moe load-balance
+        loss (0 for the other families), each a 0-dim f32 tensor on the
+        model's device."""
+        logits, aux = self.forward(params, batch)
+        ce = cross_entropy(logits, batch["labels"], z_loss)
+        if not torch.is_tensor(aux):   # 0.0: no moe layer
+            aux = torch.full((), float(aux), dtype=torch.float32, device=ce.device)
+        total = ce + aux_weight * aux
+        return total, {"loss": total, "ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------
     # caches

@@ -782,6 +782,83 @@ def test_rmsnorm_repeat_and_graph_replay(cuda, dtype, R, D):
         assert torch.equal(out, rms_ops.rmsnorm(new_x, w))
 
 
+def _bwd_ok(out, want, dtype, floor):
+    """The backward kernel's tolerance: f32 within 1e-5 x max|plain|;
+    bf16 within one bf16 spacing of the plain version's element plus
+    ``floor`` x max|plain| (dx: 1e-5, where its two terms cancel; dw:
+    1e-3, a sum over R rows in another order)."""
+    o, w = out.float(), want.float()
+    scale = float(w.abs().max())
+    if dtype == torch.float32:
+        return float((o - w).abs().max()) <= 1e-5 * scale
+    return bool(torch.all((o - w).abs() <= w.abs() * 2 ** -7 + floor * scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parametric", [True, False])
+@pytest.mark.parametrize("R,D", [(1, 2048), (7, 1536), (2048, 2048), (4096, 3584),
+                                 (2048, 5120), (3, 128), (5, 8192)])
+def test_rmsnorm_bwd(cuda, dtype, parametric, R, D):
+    """Kernel 5's backward against ``rmsnorm_bwd_ref`` at the training
+    shapes (qwen2.5-3b D 2048 at R 2048), a decode row, ragged rows, the
+    reduced width and the widest f32 row; two calls bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(R + D)
+    x = (3 * torch.randn((R, D), generator=g, device=cuda)).to(dtype)
+    dy = torch.randn((R, D), generator=g, device=cuda).to(dtype)
+    w = ((1 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(dtype)
+         if parametric else None)
+    before = rms_ops.bwd_launches
+    dx, dw = rms_ops.rmsnorm_bwd(x, w, dy)
+    dx2, dw2 = rms_ops.rmsnorm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert rms_ops.bwd_launches == before + 2
+    want_dx, want_dw = rms_ops.ref.rmsnorm_bwd_ref(x, w, dy)
+    assert dx.dtype == dtype and dx.shape == x.shape and torch.equal(dx, dx2)
+    assert _bwd_ok(dx, want_dx, dtype, 1e-5)
+    if parametric:
+        assert dw.dtype == dtype and torch.equal(dw, dw2)
+        assert _bwd_ok(dw, want_dw, dtype, 1e-3)
+    else:
+        assert dw is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_graph_replay_and_function(cuda, dtype):
+    """A backward call captured as a CUDA graph, replayed with new x and
+    dy, equals an eager call bit for bit; ``ops.rmsnorm`` under grad mode
+    runs the forward kernel and, in the backward, this kernel; under
+    inference_mode it launches the forward alone, with no grad_fn."""
+    R, D = 2048, 2048
+    g = torch.Generator(device=cuda).manual_seed(D)
+    w = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(dtype)
+    sx = (3 * torch.randn((R, D), generator=g, device=cuda)).to(dtype)
+    sdy = torch.randn((R, D), generator=g, device=cuda).to(dtype)
+    rms_ops.rmsnorm_bwd(sx, w, sdy)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dx, dw = rms_ops.rmsnorm_bwd(sx, w, sdy)
+    for _ in range(2):
+        x = (3 * torch.randn((R, D), generator=g, device=cuda)).to(dtype)
+        dy = torch.randn((R, D), generator=g, device=cuda).to(dtype)
+        sx.copy_(x)
+        sdy.copy_(dy)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_dx, want_dw = rms_ops.rmsnorm_bwd(x, w, dy)
+        assert torch.equal(dx, want_dx) and torch.equal(dw, want_dw)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    f0, b0 = rms_ops.launches, rms_ops.bwd_launches
+    y = rms_ops.rmsnorm(xr, wr)
+    gx, gw = torch.autograd.grad(y, (xr, wr), dy)
+    assert (rms_ops.launches - f0, rms_ops.bwd_launches - b0) == (1, 1)
+    assert torch.equal(gx, want_dx) and torch.equal(gw, want_dw)
+    with torch.inference_mode():
+        out = rms_ops.rmsnorm(xr, wr)
+    assert out.grad_fn is None
+    assert (rms_ops.launches - f0, rms_ops.bwd_launches - b0) == (2, 1)
+
+
 def _ssd_case(dev, B, H, P, N, G, dtype, seed, strided=False):
     g = torch.Generator(device=dev).manual_seed(seed)
     h = torch.randn((B, H, P, N), generator=g, device=dev)
@@ -1037,3 +1114,97 @@ def test_engine_loops_keep_their_own_graphs_at_one_horizon(cuda):
             got = loop(batch, max_len=40, n_new=2).tokens
             assert got.shape == (1, 2) and torch.equal(got, want), loop.__name__
     assert len(eng._executors) == 2 and len(eng._caches) == 1
+
+
+def _train_setup(cuda, dtype):
+    """The reduced qwen2.5-3b, params drawn on the CPU with its norms and
+    biases moved off 1 / 0, on the CPU and on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.training import DataCursor, synthetic_batch
+    from repro_torch.training.tree import leaves_with_path
+    cfg = get_config("qwen2.5-3b").reduced().replace(dtype=dtype)
+    params = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    for path, t in leaves_with_path(params):
+        if path[-1] in ("norm1", "norm2", "final_norm", "bq", "bk", "bv"):
+            t.add_((0.1 * torch.randn(t.shape, generator=g)).to(t.dtype))
+    batches = [synthetic_batch(cfg, DataCursor(3, i), batch=2, seq_len=64)
+               for i in range(4)]
+    return cfg, params, batches
+
+
+def _to(tree, dev):
+    from repro_torch.training.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def test_train_step_grads_card_equal_cpu(cuda):
+    """The reduced f32 model's loss and grads on the card (kernel 5 and
+    its backward, remat blocks) against the CPU's (their plain versions),
+    each leaf within 1e-4 x max|g|; the norm weights' grads are nonzero."""
+    from repro_torch.models.model import Model
+    from repro_torch.training import trainable
+    from repro_torch.training.tree import leaves_with_path
+    cfg, params, batches = _train_setup(cuda, "float32")
+    out = {}
+    for dev, remat in (("cpu", "none"), (cuda, "blocks")):
+        p = trainable(_to(params, dev))
+        loss, _ = Model(cfg, device=dev, remat=remat).loss(p, _to(batches[0], dev))
+        leaves = leaves_with_path(p)
+        b0 = rms_ops.bwd_launches
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        out[str(dev)] = (float(loss.detach()), [(path, gr.cpu()) for (path, _), gr
+                                                in zip(leaves, grads)],
+                         rms_ops.bwd_launches - b0)
+    (l_cpu, g_cpu, _), (l_gpu, g_gpu, bwd) = out["cpu"], out[str(cuda)]
+    assert bwd == 2 * cfg.n_layers + 1
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-5)
+    for (path, a), (_, b) in zip(g_gpu, g_cpu):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), path
+        if path[-1] in ("norm1", "norm2", "final_norm"):
+            assert float(a.abs().max()) > 0, path
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jit_train_step_replays_equal_eager_steps(cuda, dtype):
+    """jit_train_step (the first call a real step on a side stream and the
+    capture, then graph replays) gives the eager step's losses and params
+    bit for bit over 4 batches from the same state; the replays launch
+    kernel 5's forward and backward as an eager step does; another batch
+    shape raises; another state is copied into the captured one."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.model import Model
+    from repro_torch.training import (AdamW, jit_train_step, make_train_step,
+                                      trainable)
+    from repro_torch.training.tree import tree_leaves
+    cfg, params, batches = _train_setup(cuda, dtype)
+    model = Model(cfg, device=cuda)
+    opt = AdamW(lr=1e-3)
+    step = make_train_step(model, opt, remat="blocks")
+    runs = {}
+    for label, fn in (("eager", step), ("graph", jit_train_step(step))):
+        p = trainable(_to(params, cuda))
+        state = (p, opt.init(p))
+        losses, counts = [], []
+        for b in batches:
+            before = (launch_counts(), dict(dispatch.replay_launches))
+            state, m = fn(state, _to(b, cuda))
+            losses.append(float(m["loss"]))
+            counts.append({k: launch_counts()[k] - before[0][k]
+                           + dispatch.replay_launches.get(k, 0) - before[1].get(k, 0)
+                           for k in ("rmsnorm", "rmsnorm_bwd")})
+        runs[label] = (losses, [t.detach().clone() for t in tree_leaves(state)], counts)
+    assert runs["graph"][0] == runs["eager"][0]
+    for a, b in zip(runs["graph"][1], runs["eager"][1]):
+        assert torch.equal(a, b)
+    per_step = {"rmsnorm": 4 * cfg.n_layers + 1, "rmsnorm_bwd": 2 * cfg.n_layers + 1}
+    assert runs["eager"][2] == [per_step] * 4
+    assert runs["graph"][2][2:] == [per_step] * 2     # replays
+    with pytest.raises(ValueError, match="captured for batches"):
+        b = _to(batches[0], cuda)
+        fn(state, {k: v[:1] for k, v in b.items()})
+    fresh = trainable(_to(params, cuda))
+    state2, m = fn((fresh, opt.init(fresh)), _to(batches[0], cuda))
+    assert state2 is state and float(m["loss"]) == runs["eager"][0][0]
