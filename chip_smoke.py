@@ -223,7 +223,27 @@ Phases, in order; each raises on failure and nothing catches:
     equal step for step), kernel launches a step, the profiler's top
     device ops of one eager step and the graph's busy share.  Its
     numbers go on a ``{"training": ...}`` line.
-19. the kernels line: one JSON object with every ported kernel's
+19. the multi-device runtime (``launch/mesh``, ``sharding``, ``hints``)
+    on a world-1 NCCL group started on an in-process ``HashStore`` (no
+    environment, no port, no subprocess; destroyed when the phase ends)
+    and a 1x1 ``(data, model)`` mesh.  (a) the five kernel wrappers (and
+    RMSNorm's backward under grad) on DTensors at main-path shapes, with
+    the placements the plan gives their inputs and with a reduced dim
+    split: each output ``torch.equal`` to the plain call's and a DTensor
+    with the wrapper rule's placements (dw ``Partial`` over the mesh dim
+    that splits the rows).  (b) a 2-layer qwen2.5-7b-width bf16 decode
+    step on DTensors, the B=1 cache planned by ``cache_shardings`` (the
+    sequence over data and model): logits and cache ``torch.equal`` to
+    the plain step's, kernel 1 twice a step (wrapper count and
+    profiler).  (c) qwen2.5-3b at full width and depth, bf16, batch 1,
+    seq 2048, remat blocks, 3 + 5 uncaptured steps, plain and then on
+    the plan's DTensors under ``activation_hints`` (each arm's state
+    freed before the next): losses equal step for step (tolerance 0),
+    each arm's step p50 (min, max), MFU, peak allocated memory and
+    launches a step.  (d) ``launch.train.main`` in-process with and
+    without ``--distributed`` (qwen2.5-3b reduced, 20 steps): equal loss
+    lines.  Its numbers go on a ``{"distributed": ...}`` line.
+20. the kernels line: one JSON object with every ported kernel's
     numbers (all five, and kernel 5's backward: no TPU kernel is left to
     port; ``device_us`` and
     ``b2b_us`` for kernels 4 and 5, null for the others); ``launches`` sums
@@ -231,15 +251,17 @@ Phases, in order; each raises on failure and nothing catches:
     each path's count (the tiered cells of phase 16 included); the int4
     row adds the M=2048 sums (``prefill_*``) and the prefill's launches
     and walls.  ``rmsnorm_bwd`` (the backward, port-only) counts phase
-    18c's launches.
-20. last line: ``{"ok": true, "device": {...}}``.
+    18c's and 19c's launches; 19b and 19c's DTensor arm are paths of
+    their own in ``launches_by_path``.
+21. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only kernels
 
 runs phases 1-6 only and prints the kernels line (launches null) without
 the ``ok`` line: the quick call for tuning a kernel.  ``--only families``
-runs phases 1, 9c and 17 only, ``--only train`` phases 1, 5b and 18 (no
-kernels line, no ``ok`` line).
+runs phases 1, 9c and 17 only, ``--only train`` phases 1, 5b and 18,
+``--only dist`` phases 1 and 19 (no kernels line, no ``ok`` line).
+Every phase prints its name on a line of its own before it starts.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Times are CUDA-event medians of 30 runs
@@ -249,7 +271,9 @@ tensor cores).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import statistics
 import subprocess
@@ -352,6 +376,7 @@ def rel_err(out, ref) -> tuple:
 # ---------------------------------------------------------------- phase 1
 def setup():
     from repro_torch.kernels import _build
+    log("== phase 1: setup (the card, versions, the kernels' build)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -3038,6 +3063,308 @@ def training(dev):
     return launched(), out
 
 
+# ---------------------------------------------------------------- phase 19
+DIST_WARMUP, DIST_STEPS = 3, 5
+DIST_DECODE_ARCH, DIST_DECODE_LAYERS, DIST_CTX, DIST_PROMPT = "qwen2.5-7b", 2, 1024, 512
+DIST_LOSS_TOL = 0.0     # relative, step for step: a 1x1 mesh runs the same kernels
+
+
+def dist_start(dev):
+    """A world-1 NCCL group on an in-process store (no environment, no
+    port, no subprocess) and a 1x1 (data, model) mesh over it."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    return make_test_mesh(data=1, model=1, device_type="cuda")
+
+
+def dtensor_case(name, got, want, placements):
+    """``got`` must be a DTensor with ``placements`` whose value is
+    ``torch.equal`` to the plain call's ``want``."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(got, DTensor) or tuple(got.placements) != tuple(placements):
+        raise AssertionError(f"19a {name}: want a DTensor {placements}, got "
+                             f"{type(got).__name__} {getattr(got, 'placements', None)}")
+    local = got.to_local()
+    if not torch.equal(local, want):
+        raise AssertionError(f"19a {name}: not equal to the plain call, max |diff| "
+                             f"{float((local.float() - want.float()).abs().max())}")
+    return {"case": name, "placements": [str(p) for p in placements], "equal": True}
+
+
+def check_dtensor_wrappers(dev, mesh):
+    """19a: the five wrappers (and RMSNorm's backward under grad) on
+    DTensors at main-path shapes, with the placements the plan gives
+    their inputs (batch rows over data, weights' columns over model, a
+    B=1 cache's sequence over data and model, pools' pages over data),
+    and with a reduced dim split (gathered first).  Each output
+    ``torch.equal`` to the plain-tensor call's, with the placements the
+    wrapper's rule gives."""
+    from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.int4_matmul import ops as i4
+    from repro_torch.kernels.paged_decode_attention import ops as pda
+    from repro_torch.kernels.rmsnorm import ops as rn
+    from repro_torch.kernels.ssd_update import ops as ssd
+    log("== phase 19a: the five kernel wrappers on DTensors (1x1 mesh), each "
+        "output torch.equal to the plain call's")
+    R, S0, S1, S2 = Replicate(), Shard(0), Shard(1), Shard(2)
+
+    def put(t, *pl):
+        return None if t is None else distribute_tensor(t, mesh, list(pl))
+    bf = torch.bfloat16
+    cases = []
+    # kernel 1: qwen2.5-7b decode shape, B=1 cache split over the sequence
+    q, k, v, mask = attention_case(dev, bf, 1, 28, 4, 128, 2048,
+                                   torch.arange(2048) < 1500, 31)
+    want = da.decode_attention(q, k, v, mask)
+    for qp, kp, outp in (((S0, R), (S1, S1), (S0, R)), ((R, R), (R, R), (R, R)),
+                         ((R, S1), (R, S2), (R, S1))):
+        got = da.decode_attention(put(q, *qp), put(k, *kp), put(v, *kp),
+                                  put(mask, R, R))
+        cases.append(dtensor_case(f"decode_attention q{qp} kv{kp}", got, want, outp))
+    # kernel 2: the paged serving shape, bf16 and int8 pools
+    for quant in (False, True):
+        q, k, v, bt, lens, ks, vs = paged_case(dev, bf, quant, [2100, 7, 0, 1300],
+                                               16, 2112, 32)
+        want = pda.paged_decode_attention(q, k, v, bt, lens, ks, vs)
+        for qp, pp in (((S0, R), (S0, S1)), ((R, S1), (R, S2))):
+            got = pda.paged_decode_attention(
+                put(q, *qp), put(k, *pp), put(v, *pp), put(bt, qp[0], R),
+                put(lens, qp[0], R), put(ks, *pp), put(vs, *pp))
+            cases.append(dtensor_case(f"paged_decode_attention int8={quant} "
+                                      f"q{qp} pools{pp}", got, want, qp))
+    # kernel 3: the GEMV (M=1) and the wgmma path (M=512), wq's shape
+    for M in (1, 512):
+        x, packed, scales = int4_case(dev, bf, M, 3584, 3584, 33)
+        want = i4.int4_matmul(x, packed, scales)
+        for xp, wp, outp in (((S0, R), (R, S1), (S0, S1)), ((R, S1), (S0, R), (R, R))):
+            got = i4.int4_matmul(put(x, *xp), put(packed, *wp), put(scales, *wp))
+            cases.append(dtensor_case(f"int4_matmul M={M} x{xp} w{wp}", got, want, outp))
+    # kernel 4: the mamba2-2.7b decode shape, in place on a split state
+    h, x, dt, A, Bm, Cm = ssd_case(dev, torch.float32, 1, 80, 64, 128, 1, 34)
+    want_h, want_y = ssd.ssd_update(h.clone(), x, dt, A, Bm, Cm)
+    for hp in ((S0, S1), (R, R)):
+        hd_ = put(h.clone(), *hp)
+        got_h, got_y = ssd.ssd_update(hd_, put(x, *hp), put(dt, *hp),
+                                      put(A, R, S0 if hp[1] == S1 else R),
+                                      put(Bm, hp[0], R), put(Cm, hp[0], R), out=hd_)
+        cases.append(dtensor_case(f"ssd_update h{hp} (out=h)", got_h, want_h, hp))
+        cases.append(dtensor_case(f"ssd_update y h{hp}", got_y, want_y, hp))
+        if got_h is not hd_:
+            raise AssertionError("19a ssd_update: out= was not returned")
+    # kernel 5, forward and backward under grad: prompt rows at D=2048
+    x, w = norm_case(dev, bf, 2048, 2048, 35)
+    xs = x.reshape(1, 2048, 2048)
+    dy = torch.randn_like(xs)
+    want = rn.rmsnorm(xs, w)
+    want_dx, want_dw = rn.rmsnorm_bwd(xs, w, dy)
+    P = Partial()
+    # dw of rows split over a mesh dim is the ranks' sum there: Partial
+    for xp, outp, dwp in (((S0, R), (S0, R), (P, R)), ((R, S1), (R, S1), (R, P)),
+                          ((R, S2), (R, R), (R, R))):
+        cases.append(dtensor_case(f"rmsnorm x{xp}", rn.rmsnorm(put(xs, *xp), put(w, R, R)),
+                                  want, outp))
+        xd = put(xs, *xp).requires_grad_(True)
+        wd = put(w, R, R).requires_grad_(True)
+        y = rn.rmsnorm(xd, wd)
+        dx, dw = torch.autograd.grad(y, (xd, wd), put(dy, *outp))
+        cases.append(dtensor_case(f"rmsnorm grad dx x{xp}", dx, want_dx, xp))
+        cases.append(dtensor_case(f"rmsnorm grad dw x{xp}", dw, want_dw, dwp))
+    log(f"  {len(cases)} cases equal, outputs DTensors with the rule's placements")
+    return cases
+
+
+def dist_decode(dev, mesh):
+    """19b: a 2-layer decode step at qwen2.5-7b width in bf16, params
+    planned by ``params_shardings`` and the B=1 cache by
+    ``cache_shardings`` (the sequence over data and model), under
+    ``activation_hints``; logits equal to the plain step's; kernel 1
+    twice a step (wrapper count and profiler)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.hints import activation_hints
+    from repro_torch.models.model import Model
+    cfg = get_config(DIST_DECODE_ARCH).replace(n_layers=DIST_DECODE_LAYERS)
+    log(f"== phase 19b: {DIST_DECODE_ARCH} width, {cfg.n_layers} layers, bf16 decode "
+        f"step on DTensors (B=1 cache of {DIST_CTX} split over the sequence) "
+        "against the plain step")
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (1, DIST_PROMPT),
+                           generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    with torch.no_grad():
+        cache = model.init_cache(1, DIST_CTX)
+        _, cache = model.prefill(params, {"tokens": tokens}, cache)
+        plain_cache = {k: v.clone() for k, v in cache.items()}
+        tok = tokens[:, -1:]
+        want, _ = model.decode_step(params, plain_cache, tok)
+    plan = shd.make_plan(cfg, mesh)
+    layouts = shd.cache_shardings(plan, cache)
+    pd = shd.distribute(params, shd.params_shardings(plan, params))
+    cd = shd.distribute(cache, layouts)
+    zero_counts()
+    with torch.no_grad(), activation_hints(mesh):
+        got, _ = model.decode_step(pd, cd, tok)
+    counts = launched()
+    if counts["decode_attention"] != cfg.n_layers:
+        raise AssertionError(f"19b: kernel 1 launched {counts['decode_attention']} "
+                             f"times, want {cfg.n_layers}")
+    got = got.full_tensor()
+    if not torch.equal(got, want):
+        raise AssertionError("19b: DTensor logits differ from the plain step's, max "
+                             f"|diff| {float((got.float() - want.float()).abs().max())}")
+    kd = cd["k"].full_tensor()
+    if not torch.equal(kd, plain_cache["k"]):
+        raise AssertionError("19b: the DTensor cache's new rows differ")
+    with torch.no_grad(), activation_hints(mesh):
+        prof = top_device_ops(lambda: model.decode_step(pd, cd, tok), n=60)
+    n_k1 = sum(calls for name, calls, _ in prof[2] if "decode_attention_mma" in name)
+    if n_k1 != cfg.n_layers:
+        raise AssertionError(f"19b: profiler saw {n_k1} kernel-1 launches, want "
+                             f"{cfg.n_layers}")
+    out = {"arch": DIST_DECODE_ARCH, "layers": cfg.n_layers, "ctx": DIST_CTX,
+           "cache_spec": [str(x) for x in layouts["k"].spec],
+           "cache_placements": [str(p) for p in layouts["k"].placements],
+           "logits_equal": True, "kernel1_per_step": n_k1, "counts": counts}
+    log(f"  logits and cache torch.equal to the plain step's; cache spec "
+        f"{out['cache_spec']} -> {out['cache_placements']}; kernel 1 {n_k1}x a step "
+        f"(profiler), wrapper counts {counts}")
+    del model, params, pd, cd, cache, plain_cache
+    free_card()
+    return counts, out
+
+
+def dist_train(dev, mesh):
+    """19c: qwen2.5-3b full width and depth, bf16, batch 1, seq 2048,
+    remat blocks, uncaptured: the plain step, then the same batches from
+    the same seed through the plan's DTensors under activation_hints.
+    Each arm's state is freed before the next is built."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hardware import GPU_H100
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.hints import activation_hints
+    from repro_torch.launch.train import state_shardings
+    from repro_torch.models.model import Model
+    from repro_torch.training import (AdamW, DataCursor, cosine_schedule,
+                                      make_train_step, synthetic_batch, trainable)
+    from repro_torch.training.tree import tree_leaves
+    free_card()
+    n = DIST_WARMUP + DIST_STEPS
+    log(f"== phase 19c: training {TRAIN_ARCH} at full width (36 layers, bf16), batch 1, "
+        f"seq {TRAIN_SEQ}, remat blocks, {DIST_WARMUP} + {DIST_STEPS} uncaptured steps: "
+        "plain tensors, then the plan's DTensors on the 1x1 mesh")
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg, device=dev)
+    opt = AdamW(lr=cosine_schedule(3e-4, 2, 4 * n))
+    step = make_train_step(model, opt, remat="blocks")
+    plan = shd.make_plan(cfg, mesh)
+    batches = [synthetic_batch(cfg, DataCursor(7, i), batch=1, seq_len=TRAIN_SEQ,
+                               device=dev) for i in range(n)]
+    out, counts = {}, {}
+
+    def arm(sharded):
+        params = trainable(model.init(torch.Generator(device=dev).manual_seed(0)))
+        state = (params, opt.init(params))
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        if sharded:
+            state = shd.distribute(state, state_shardings(plan, state))
+        del params
+        free_card()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ctx = activation_hints(mesh) if sharded else contextlib.nullcontext()
+        losses, walls, per_step = [], [], None
+        zero_counts()
+        with ctx:
+            for i, b in enumerate(batches):
+                if sharded:
+                    b = shd.distribute(b, shd.batch_shardings(plan, b))
+                before = launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+                if i == 1:
+                    per_step = {k: v - before[k] for k, v in launch_counts().items()
+                                if v != before[k]}
+        arm_counts = launched()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        res = dict(spread(walls[DIST_WARMUP:]), first_ms=walls[0], peak_gb=peak,
+                   losses=losses, launches_per_step=per_step)
+        res["mfu"] = 6 * n_params * TRAIN_SEQ / (res["p50_ms"] / 1e3) / \
+            GPU_H100.peak_flops_bf16
+        label = "DTensor" if sharded else "plain"
+        log(f"  {label}: step p50 {res['p50_ms']:.2f} ms (min {res['min_ms']:.2f}, max "
+            f"{res['max_ms']:.2f}, first {walls[0]:.1f}) over steps {DIST_WARMUP + 1}-{n}; "
+            f"MFU {100 * res['mfu']:.2f}%; peak allocated {peak:.2f} GB; kernel launches "
+            f"a step {per_step}")
+        log(f"  {label} losses {losses}")
+        del state
+        free_card()
+        return res, arm_counts
+
+    out["plain"], _ = arm(False)
+    out["dtensor"], counts = arm(True)
+    lp, ld = out["plain"]["losses"], out["dtensor"]["losses"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(lp, ld))
+    out["loss_max_rel_diff"] = rel
+    out["loss_tol"] = DIST_LOSS_TOL
+    if not all(np.isfinite(ld)) or rel > DIST_LOSS_TOL:
+        raise AssertionError(f"19c: losses differ beyond {DIST_LOSS_TOL}: {lp} vs {ld}")
+    out["dtensor_over_plain"] = out["dtensor"]["p50_ms"] / out["plain"]["p50_ms"]
+    log(f"  losses equal step for step within {DIST_LOSS_TOL} relative (max relative "
+        f"difference {rel}); DTensor p50 / plain p50 {out['dtensor_over_plain']:.3f}")
+    del model
+    free_card()
+    return counts, out
+
+
+def dist_launcher():
+    """19d: ``repro_torch.launch.train.main`` in-process with and without
+    ``--distributed`` on the phase's group; the loss lines must match."""
+    from repro_torch.launch import train
+    argv = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "20"]
+    log(f"== phase 19d: launch.train.main({argv} [+ --distributed]) in-process")
+    lines = {}
+    for label, extra in (("plain", []), ("distributed", ["--distributed"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train.main(argv + extra)
+        text = buf.getvalue().strip().splitlines()
+        lines[label] = text
+        log(f"  {label}: {text}")
+    if lines["plain"][-1] != lines["distributed"][-1]:
+        raise AssertionError(f"19d: loss lines differ: {lines}")
+    return {"plain": lines["plain"][-1], "distributed": lines["distributed"][-1],
+            "equal": True}
+
+
+def distributed(dev):
+    """Phase 19; returns (kernel launches of 19b and 19c's DTensor arm,
+    the phase's numbers).  The group is destroyed at the end."""
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    log("== phase 19: the multi-device runtime on DTensor (world-1 NCCL group on "
+        "an in-process store, 1x1 (data, model) mesh)")
+    mesh = dist_start(dev)
+    try:
+        out = {"wrappers": check_dtensor_wrappers(dev, mesh)}
+        decode_counts, out["decode"] = dist_decode(dev, mesh)
+        train_counts, out["train"] = dist_train(dev, mesh)
+        out["launcher"] = dist_launcher()
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 19 took {out['seconds']:.1f} s")
+    return {"decode": decode_counts, "train": train_counts}, out
+
+
 # ---------------------------------------------------------------- main
 PENDING = []    # TPU kernels still to port: none
 
@@ -3055,13 +3382,15 @@ def kernels_line(rows) -> str:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "families", "train"],
+    ap.add_argument("--only", choices=["kernels", "families", "train", "dist"],
                     help="kernels: phases 1-6 and the kernels line (launches "
                          "null), no main path and no ok line; families: "
                          "phases 1, 9c and 17 (the moe, vlm and audio "
                          "families), no kernels line and no ok line; train: "
                          "phases 1, 5b and 18 (training), no kernels line "
-                         "and no ok line")
+                         "and no ok line; dist: phases 1 and 19 (the "
+                         "multi-device runtime), no kernels line and no ok "
+                         "line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3070,6 +3399,11 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     smi, dev = setup()
+    if args.only == "dist":
+        _, dist_out = distributed(dev)
+        log(json.dumps({"distributed": dist_out}))
+        log(smi.splitlines()[0])
+        return 0
     if args.only == "families":
         check_f32_family_tokens(dev)
         _, fam = families_full_width(dev)
@@ -3115,6 +3449,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     fc, fam = families_full_width(dev)
     tc, train = training(dev)
+    dc, dist_out = distributed(dev)
     dense, int4 = "qwen2.5-7b batch-1 bf16", "qwen2.5-7b batch-1 int4"
     paged = ("qwen2.5-7b paged bf16 KV", "qwen2.5-7b paged int8 KV")
     tiered = ("qwen2.5-7b tiered paged bf16 KV", "qwen2.5-7b tiered paged int8 KV")
@@ -3124,10 +3459,13 @@ def main(argv=None) -> int:
                          "qwen2-moe-a2.7b paged bf16 KV")
     vl, audio = "qwen2-vl-2b batch-1", "musicgen-large batch-1"
     trained = "qwen2.5-3b training bf16 (eager and captured steps)"
+    d_decode = "qwen2.5-7b-width decode on DTensors (2 layers, sequence-split cache)"
+    d_train = "qwen2.5-3b training bf16 on DTensors (1x1 mesh, uncaptured)"
     by_path = [
         {dense: da_launches, zamba: ssm[1]["decode_attention"],
          moe: fc["moe"]["decode_attention"], moe_q: fc["moe_int4"]["decode_attention"],
-         vl: fc["vlm"]["decode_attention"], audio: fc["audio"]["decode_attention"]},
+         vl: fc["vlm"]["decode_attention"], audio: fc["audio"]["decode_attention"],
+         d_decode: dc["decode"]["decode_attention"]},
         {int4: i4_launches, moe_q: fc["moe_int4"]["int4_matmul"]},
         {paged[0]: paged_launches[0], tiered[0]: t_bf16[0],
          moe_p: fc["moe_paged"]["paged_decode_attention"]},
@@ -3137,9 +3475,10 @@ def main(argv=None) -> int:
          mamba: ssm[0]["rmsnorm"], zamba: ssm[1]["rmsnorm"],
          moe: fc["moe"]["rmsnorm"], moe_q: fc["moe_int4"]["rmsnorm"],
          moe_p: fc["moe_paged"]["rmsnorm"], vl: fc["vlm"]["rmsnorm"],
-         audio: fc["audio"]["rmsnorm"], trained: tc["rmsnorm"]},
+         audio: fc["audio"]["rmsnorm"], trained: tc["rmsnorm"],
+         d_decode: dc["decode"]["rmsnorm"], d_train: dc["train"]["rmsnorm"]},
         {mamba: ssm[0]["ssd_update"], zamba: ssm[1]["ssd_update"]},
-        {trained: tc["rmsnorm_bwd"]}]
+        {trained: tc["rmsnorm_bwd"], d_train: dc["train"]["rmsnorm_bwd"]}]
     for row, counts in zip(rows, by_path):
         row["launches"] = sum(counts.values())
         row["launches_by_path"] = counts
@@ -3149,6 +3488,7 @@ def main(argv=None) -> int:
     log(json.dumps({"host_tier": tier}))
     log(json.dumps({"families": fam}))
     log(json.dumps({"training": train}))
+    log(json.dumps({"distributed": dist_out}))
     log(smi.splitlines()[0])
     print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {

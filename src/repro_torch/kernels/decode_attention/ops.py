@@ -17,6 +17,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import _dtensor as _dt
 from repro_torch.kernels.decode_attention import ref
 
 TILE = 32          # tokens per tile of the CUDA-core path (kTile in the source)
@@ -113,6 +114,8 @@ def _check(q, k, v, mask):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    _dt.check_pointers("decode_attention",
+                       (("q", q), ("k", k), ("v", v), ("mask", mask)))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,7 +123,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, Hq, hd); k/v (B, S, Hkv, hd); mask (S,) shared or (B, S) per
     sequence, nonzero = valid slot.  Returns (B, Hq, hd) in q's dtype; a
     row with no valid slot is zeros.  A masked slot's K/V row is never
-    read.  ``path_for`` names the kernel path."""
+    read.  ``path_for`` names the kernel path.
+
+    DTensors run on their local shards (``_dtensor.local_call``): batch
+    and KV heads (with their query heads) may stay split; a split
+    sequence or head_dim is all-gathered first, as is a cache sharded
+    over the sequence."""
+    if _dt.any_dtensor(q, k, v, mask):
+        return _dt.local_call(decode_attention,
+                              [(q, "bh."), (k, "b.h."), (v, "b.h."),
+                               (mask, "b." if mask.dim() == 2 else ".")],
+                              ["bh."])
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, mask)
     if q.device.type != "cuda":

@@ -16,6 +16,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import _dtensor as _dt
 from repro_torch.kernels.int4_matmul import ref
 
 GEMV_MAX_M = 4         # rows of x the GEMV serves (kGemvMaxM)
@@ -88,12 +89,20 @@ def _check(x, packed, scales, group):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    _dt.check_pointers("int4_matmul",
+                       (("x", x), ("packed", packed), ("scales", scales)))
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                 *, group: int = 128) -> torch.Tensor:
     """x (M, K) @ int4-packed (K//2, N) with per-group scales -> (M, N) in
-    x's dtype, accumulated in f32."""
+    x's dtype, accumulated in f32.  DTensors run on their local shards
+    (``_dtensor.local_call``): rows and columns may stay split, a split
+    K is all-gathered first."""
+    if _dt.any_dtensor(x, packed, scales):
+        return _dt.local_call(int4_matmul,
+                              [(x, "m."), (packed, ".n"), (scales, ".n")],
+                              ["mn"], kwargs={"group": group})
     if x.device.type == "cpu":
         return ref.int4_matmul_ref(x, packed, scales, group)
     if x.device.type != "cuda":

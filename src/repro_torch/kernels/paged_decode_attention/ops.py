@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import _dtensor as _dt
 from repro_torch.kernels.paged_decode_attention import ref
 
 TILE = 32          # tokens per tile of the CUDA-core path (kTile)
@@ -141,6 +142,7 @@ def _check(q, k_pool, v_pool, block_table, lengths, ks, vs):
     for name, t in named[:3]:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    _dt.check_pointers("paged_decode_attention", named)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -157,8 +159,20 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     scale pools (n_pages, page, Hkv) f32 the pools hold int8 codes, K
     and V are ``codes * scale``, and no dequantised copy is written.  A
     slot with ``lengths[b] == 0`` gives zeros.  ``path_for`` names the
-    kernel path."""
+    kernel path.
+
+    DTensors run on their local shards (``_dtensor.local_call``): slots
+    and KV heads (with their query heads) may stay split; pages, page
+    rows and head_dim are all-gathered first (a block table names pages
+    of the whole pool)."""
     quant = k_scale_pool is not None
+    if _dt.any_dtensor(q, k_pool, v_pool, block_table, lengths,
+                       k_scale_pool, v_scale_pool):
+        return _dt.local_call(paged_decode_attention,
+                              [(q, "bh."), (k_pool, "..h."), (v_pool, "..h."),
+                               (block_table, "b."), (lengths, "b"),
+                               (k_scale_pool, "..h"), (v_scale_pool, "..h")],
+                              ["bh."])
     if q.device.type == "cpu":
         if quant:
             out = ref.paged_decode_attention_quant_ref(

@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import _dtensor as _dt
 from repro_torch.kernels.rmsnorm import ref
 
 DTYPES = (torch.bfloat16, torch.float32)
@@ -132,6 +133,13 @@ def _check(x: torch.Tensor, w: Optional[torch.Tensor]) -> None:
                              f"{tuple(w.shape)} {w.dtype}")
         if w.device != x.device or not w.is_contiguous():
             raise ValueError("w must be contiguous on x's device")
+    _dt.check_pointers("rmsnorm", (("x", x), ("w", w)))
+
+
+def _rows(x) -> str:
+    """The letters of x's dims for ``_dtensor.local_call``: each row dim
+    its own axis, the normalised dim reduced."""
+    return "abcdefghijklmnop"[:x.dim() - 1] + "."
 
 
 def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
@@ -141,7 +149,12 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
     f32.  A strided x whose rows share one stride is read in place.  On
     the card D and the row stride must be multiples of 16 bytes and a row
     at most 32 KB (D 16384 bf16, 8192 f32).  Differentiable in x and w
-    (``RMSNormFunction``) under grad mode."""
+    (``RMSNormFunction``) under grad mode.  DTensors run on their local
+    rows (``_dtensor.local_call``): D is gathered where it is sharded,
+    and the rows stay as they are split."""
+    if _dt.any_dtensor(x, w):
+        return _dt.local_call(lambda xl, wl: rmsnorm(xl, wl, eps),
+                              [(x, _rows(x)), (w, ".")], [_rows(x)])
     if torch.is_grad_enabled() and (x.requires_grad or (
             w is not None and w.requires_grad)):
         return RMSNormFunction.apply(x, w, eps)
@@ -151,7 +164,10 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
 def _forward(x: torch.Tensor, w: Optional[torch.Tensor],
              eps: float) -> torch.Tensor:
     """The forward on x's device: the kernel on the card, the plain
-    version on the CPU."""
+    version on the CPU; DTensors on their local rows."""
+    if _dt.any_dtensor(x, w):
+        return _dt.local_call(lambda xl, wl: _forward(xl, wl, eps),
+                              [(x, _rows(x)), (w, ".")], [_rows(x)])
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
     if x.device.type != "cuda":
@@ -212,7 +228,13 @@ def rmsnorm_bwd(x: torch.Tensor, w: Optional[torch.Tensor], dy: torch.Tensor,
     formulas).  On the card: the backward kernel, then (with w) the
     fixed-order sum of its blocks' parts of dw; no atomics, so repeated
     calls give the same bits.  x and dy are read contiguous (copied
-    first when they are not)."""
+    first when they are not).  DTensors run on their local rows; dw of
+    rows split over a mesh dim is the sum of the ranks' parts, returned
+    ``Partial()`` there."""
+    if _dt.any_dtensor(x, w, dy):
+        return _dt.local_call(lambda xl, wl, dyl: rmsnorm_bwd(xl, wl, dyl, eps),
+                              [(x, _rows(x)), (w, "."), (dy, _rows(x))],
+                              [_rows(x), "."], sums=(False, True))
     if x.device.type == "cpu":
         return ref.rmsnorm_bwd_ref(x, w, dy, eps)
     if x.device.type != "cuda":
@@ -221,6 +243,7 @@ def rmsnorm_bwd(x: torch.Tensor, w: Optional[torch.Tensor], dy: torch.Tensor,
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must be {tuple(x.shape)} {x.dtype} on x's device; "
                          f"got {tuple(dy.shape)} {dy.dtype} {dy.device}")
+    _dt.check_pointers("rmsnorm_bwd", (("dy", dy),))
     D = x.shape[-1]
     x2 = x.reshape(-1, D).contiguous()
     dy2 = dy.reshape(-1, D).contiguous()
@@ -257,7 +280,9 @@ class RMSNormFunction(torch.autograd.Function):
     """``rmsnorm`` with its gradient: forward ``_forward`` (the kernel on
     the card, ``ref.rmsnorm_ref`` on the CPU), backward ``rmsnorm_bwd``
     (the backward kernel on the card, ``ref.rmsnorm_bwd_ref`` on the
-    CPU).  Saves x and w; r is recomputed from x in the backward."""
+    CPU).  Saves x and w; r is recomputed from x in the backward.  On
+    DTensors both run on the local rows, and dw comes back ``Partial()``
+    on the mesh dims that split the rows (``rmsnorm_bwd``)."""
 
     @staticmethod
     def forward(ctx, x, w, eps):

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import _dtensor as _dt
 from repro_torch.kernels.ssd_update import ref
 
 MIN_N = 16         # four lanes of 16-byte chunks per row at least
@@ -127,6 +128,8 @@ def _check(h, x, dt, A, Bm, Cm, out):
     for name, t in (("h", h), ("out", out)):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    _dt.check_pointers("ssd_update", (("h", h), ("x", x), ("dt", dt), ("A", A),
+                                      ("Bm", Bm), ("Cm", Cm), ("out", out)))
 
 
 def ssd_update(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
@@ -139,7 +142,21 @@ def ssd_update(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     negative; Bm/Cm (B,G,N) with G | H, x/Bm/Cm bf16 or f32.  Returns
     (h', y (B,H,P) f32), the SSD inner math of the Mamba2 decode step
     before the D skip and the gating; h' is ``out`` when given (``h``
-    for the in-place update), else a new tensor."""
+    for the in-place update), else a new tensor.
+
+    DTensors run on their local shards (``_dtensor.local_call``): batch,
+    heads (with their groups of Bm / Cm) and P may stay split; a split N
+    is all-gathered first.  With ``out`` the new state is copied into it
+    in its own layout."""
+    if _dt.any_dtensor(h, x, dt, A, Bm, Cm, out):
+        h_new, y = _dt.local_call(ssd_update,
+                                  [(h, "bhp."), (x, "bhp"), (dt, "bh"), (A, "h"),
+                                   (Bm, "bh."), (Cm, "bh.")],
+                                  ["bhp.", "bhp"])
+        if out is not None:
+            out.copy_(h_new.redistribute(out.device_mesh, out.placements))
+            h_new = out
+        return h_new, y
     if h.device.type == "cpu":
         h_new, y = ref.ssd_update_ref(h, x, dt, A, Bm, Cm)
         if out is not None:

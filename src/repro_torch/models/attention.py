@@ -28,6 +28,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import _dtensor as _dt
+from repro_torch.launch import hints
 from repro_torch.models.common import dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -64,9 +66,10 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ArchConfig):
     v = matmul(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
-            k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim))
+    def heads(t, n):
+        t = _dt.split_dim(t, -1, n).reshape(B, S, n, cfg.head_dim)
+        return hints.constrain(t, ("dp", None, "tp"))
+    return heads(q, cfg.n_heads), heads(k, cfg.n_kv_heads), heads(v, cfg.n_kv_heads)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -74,21 +77,38 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor, cfg: ArchConfig) -> torch.Tens
 
     Operands in their own precision, products summed in f32 (the
     reference's ``preferred_element_type=f32``): a bf16 product is exact
-    in f32, so an f32 einsum over the upcast operands is the same."""
+    in f32, so an f32 einsum over the upcast operands is the same.
+    DTensors: each rank's batch rows, query rows and KV heads (with
+    their query heads), the keys and head_dim gathered
+    (``_dtensor.local_call``); DTensor's own einsum would flatten two
+    split dims, which it refuses."""
+    if _dt.any_dtensor(q, k):
+        return _dt.local_call(_gqa_scores_local, [(q, "bqh."), (k, "b.h.")],
+                              ["bhgq."])
+    return _gqa_scores_local(q, k)
+
+
+def _gqa_scores_local(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     B, Sq, Hq, hd = q.shape
-    G = Hq // cfg.n_kv_heads
-    qg = q.reshape(B, Sq, cfg.n_kv_heads, G, hd)
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, hd)
     return torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * (hd ** -0.5)
 
 
 def _gqa_out(probs: torch.Tensor, v: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """probs (B,Hkv,G,Sq,Sk) f32, v (B,Sk,Hkv,hd) -> (B,Sq,Hq*hd) f32.
     The probabilities are rounded to v's dtype first, as the reference
-    does."""
-    B = probs.shape[0]
+    does.  DTensors as in ``_gqa_scores``."""
+    if _dt.any_dtensor(probs, v):
+        return _dt.local_call(_gqa_out_local, [(probs, "bhgq."), (v, "b.h.")],
+                              ["bqh"])
+    return _gqa_out_local(probs, v)
+
+
+def _gqa_out_local(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     o = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype).float(), v.float())
-    Sq = o.shape[1]
-    return o.reshape(B, Sq, cfg.n_heads * cfg.head_dim)
+    B, Sq = o.shape[:2]
+    return o.reshape(B, Sq, -1)
 
 
 def _causal_probs(scores: torch.Tensor, q0: int, S: int,
@@ -118,7 +138,11 @@ def attention_full(p: Params, x: torch.Tensor, angles: torch.Tensor,
     k = apply_rope_fn(k, angles)
 
     if S <= CHUNKED_ATTN_THRESHOLD:
-        probs = _causal_probs(_gqa_scores(q, k, cfg), 0, S, cfg.sliding_window)
+        # prefer kv-head TP; context-parallel (query-seq) fallback for
+        # head counts that don't divide the model axis
+        scores = hints.constrain_first_fit(
+            _gqa_scores(q, k, cfg), [("dp", "tp"), ("dp", None, None, "tp")])
+        probs = _causal_probs(scores, 0, S, cfg.sliding_window)
         out = _gqa_out(probs, v, cfg).to(x.dtype)
         return matmul(out, p["wo"]), (k, v)
 
@@ -128,8 +152,9 @@ def attention_full(p: Params, x: torch.Tensor, angles: torch.Tensor,
     blocks = []
     for i in range(S // bq):
         qi = q[:, i * bq:(i + 1) * bq]
-        probs = _causal_probs(_gqa_scores(qi, k, cfg), i * bq, S,
-                              cfg.sliding_window)
+        scores = hints.constrain_first_fit(
+            _gqa_scores(qi, k, cfg), [("dp", "tp"), ("dp", None, None, "tp")])
+        probs = _causal_probs(scores, i * bq, S, cfg.sliding_window)
         blocks.append(_gqa_out(probs, v, cfg).to(x.dtype))
     out = torch.cat(blocks, dim=1)
     return matmul(out, p["wo"]), (k, v)
@@ -174,7 +199,10 @@ def _kv_write(dst: torch.Tensor, new: torch.Tensor, write_pos: torch.Tensor,
     ``active`` (B,) bool turns the write into a per-lane no-op: an
     inactive lane re-writes the row already under its position.  The
     positions stay on the device: nothing here reads them on the host.
+    A DTensor ``dst`` takes ``_kv_write_sharded``.
     """
+    if _dt.is_dtensor(dst):
+        return _kv_write_sharded(dst, new, write_pos, active)
     new = new.to(dst.dtype)
     if write_pos.dim() == 0:
         return dst.index_copy_(1, write_pos.reshape(1).long(), new)
@@ -188,6 +216,51 @@ def _kv_write(dst: torch.Tensor, new: torch.Tensor, write_pos: torch.Tensor,
         shape = (-1,) + (1,) * (row.dim() - 1)
         row = torch.where(active.reshape(shape), row, old)
     dst[lanes, write_pos] = row
+    return dst
+
+
+def _kv_write_sharded(dst, new, write_pos: torch.Tensor,
+                      active: Optional[torch.Tensor]):
+    """``_kv_write`` into a DTensor cache (B, S, ...), in place, on each
+    rank's shard: a cache split over the sequence (``cache_shardings``)
+    has each rank own S / n consecutive slots, and a rank writes the row
+    only where the position falls in its slots (an in-place write keeps
+    the cache's layout, so nothing is gathered).  The new row, the
+    positions and ``active`` are sliced to the rank's lanes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = dst.device_mesh
+    sizes = mesh.mesh.shape
+    S = dst.shape[1]
+    off, _ = _dt.shard_span(dst, 1)
+
+    def local(t, rows_only: bool):
+        if t is None:
+            return None
+        if not _dt.is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * len(sizes),
+                                   run_check=False)
+        want = [p if isinstance(p, Shard) and p.dim != 1
+                and (p.dim == 0 or not rows_only) and t.dim() > 0
+                else Replicate() for p in dst.placements]
+        return t.redistribute(mesh, want).to_local()
+    dl = dst.to_local()
+    n = dl.shape[1]
+    row = local(new, False).to(dl.dtype)
+    if write_pos.dim() == 0:
+        at = local(write_pos, True) - off
+        inside = (at >= 0) & (at < n)
+        idx = at.clamp(0, n - 1).reshape(1).long()
+        dl.index_copy_(1, idx, torch.where(inside, row, dl.index_select(1, idx)))
+        return dst
+    at = local(write_pos.clamp(max=S - 1), True) - off
+    keep = (at >= 0) & (at < n)
+    if active is not None:
+        keep = keep & local(active, True)
+    at = at.clamp(0, n - 1)
+    lanes = torch.arange(dl.shape[0], device=dl.device)
+    old = dl[lanes, at]
+    shape = (-1,) + (1,) * (old.dim() - 1)
+    dl[lanes, at] = torch.where(keep.reshape(shape), row[:, 0], old)
     return dst
 
 

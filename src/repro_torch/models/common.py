@@ -14,7 +14,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import _dtensor as _dt
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.launch import hints
 
 Params = Dict[str, torch.Tensor]
 
@@ -134,7 +136,47 @@ def mlp_forward(p: Params, x: torch.Tensor, gated: bool) -> torch.Tensor:
         h = F.silu(matmul(x, p["gate"])) * matmul(x, p["up"])
     else:
         h = F.gelu(matmul(x, p["up"]), approximate="tanh")   # jax.nn.gelu's default
+    h = hints.constrain(h, ("dp",) + (None,) * (h.dim() - 2) + ("tp",))
     return matmul(h, p["down"])
+
+
+# --------------------------------------------------------------------------
+# embedding
+# --------------------------------------------------------------------------
+
+def embedding(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``.  A DTensor table split over the
+    vocab (``launch/sharding.py``'s embed rule) is looked up on each
+    rank's rows, the other ranks' tokens giving zeros, and the parts are
+    summed (an all-reduce over the vocab's mesh dims); the result keeps
+    the tokens' batch split, replicated elsewhere."""
+    if not _dt.is_dtensor(table):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    n_mesh = mesh.ndim
+    vocab = [isinstance(p, Shard) and p.dim == 0 for p in table.placements]
+    table = table.redistribute(mesh, [Shard(0) if v else Replicate()
+                                      for v in vocab])
+    if not _dt.is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * n_mesh,
+                                    run_check=False)
+    rows = [isinstance(p, Shard) and p.dim == 0 and not vocab[m]
+            for m, p in enumerate(tokens.placements)]
+    tokens = tokens.redistribute(mesh, [Shard(0) if r else Replicate()
+                                        for r in rows])
+    off, n = _dt.shard_span(table, 0)
+    grad = [Shard(0) if vocab[m] else Partial() if rows[m] else Replicate()
+            for m in range(n_mesh)]
+    tl = table.to_local(grad_placements=grad)
+    idx = tokens.to_local() - off
+    inside = (idx >= 0) & (idx < n)
+    x = F.embedding(idx.clamp(0, n - 1), tl) * inside[..., None].to(tl.dtype)
+    x = DTensor.from_local(x, mesh, [Partial() if vocab[m] else
+                                     Shard(0) if rows[m] else Replicate()
+                                     for m in range(n_mesh)], run_check=False)
+    return x.redistribute(mesh, [Shard(0) if rows[m] else Replicate()
+                                 for m in range(n_mesh)])
 
 
 # --------------------------------------------------------------------------
@@ -145,7 +187,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 0.0) -> torch.Tensor:
     """Mean next-token CE; logits (..., V) upcast to f32; labels (...)
     (the audio family's (B, S, K, V) logits with (B, S, K) labels too).
-    ``z_loss`` adds z_loss * mean(logsumexp^2)."""
+    ``z_loss`` adds z_loss * mean(logsumexp^2).
+
+    DTensor logits: each rank takes the mean over its own rows (the
+    vocab gathered where it is split) scaled by its share of the rows,
+    and the ranks' parts are summed (an all-reduce): the mean over all
+    rows, replicated."""
+    if _dt.is_dtensor(logits):
+        from torch.distributed.tensor import Replicate
+        n = labels.numel()
+        rows = "abcdefgh"[:labels.dim()]
+        loss = _dt.local_call(
+            lambda lg, lb: cross_entropy(lg, lb, z_loss) * (lb.numel() / n),
+            [(logits, rows + "."), (labels, rows)], [""], sums=(True,))
+        return loss.redistribute(loss.device_mesh,
+                                 [Replicate()] * loss.device_mesh.ndim)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.take_along_dim(lf, labels.long()[..., None], dim=-1)[..., 0]

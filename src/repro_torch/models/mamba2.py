@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_update import ops as ssd_ops
+from repro_torch.launch import hints
 from repro_torch.models.common import dense_init, rmsnorm
 from repro_torch.quant.paths import matmul
 
@@ -165,7 +166,7 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, h0=None,
     (y (B,S,D), h_final, conv_state) so prefill can seed decode."""
     B, S, _ = x.shape
     H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    zxbcdt = matmul(x, p["in_proj"])
+    zxbcdt = hints.constrain(matmul(x, p["in_proj"]), ("dp", None, "tp"))
     z, xBC, dt = _split_proj(cfg, zxbcdt)
     xBC = _causal_conv_full(xBC, p["conv_w"], p["conv_b"])
     xs, Bm, Cm = _split_xbc(cfg, xBC)

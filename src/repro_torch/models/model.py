@@ -35,7 +35,6 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -43,8 +42,8 @@ from repro_torch.core.dispatch import StepProgram
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.common import (apply_norm, apply_rope, cross_entropy,
-                                       embed_init, init_mlp, init_norm,
-                                       make_angle_fn, mlp_forward)
+                                       embed_init, embedding, init_mlp,
+                                       init_norm, make_angle_fn, mlp_forward)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -165,11 +164,11 @@ class Model:
         if cfg.n_codebooks:
             # tokens (B, S, K): the codebooks' embeddings summed left to
             # right, as the reference's functools.reduce(jnp.add, ...)
-            x = F.embedding(tokens[..., 0], params["embed"][0])
+            x = embedding(tokens[..., 0], params["embed"][0])
             for k in range(1, cfg.n_codebooks):
-                x = x + F.embedding(tokens[..., k], params["embed"][k])
+                x = x + embedding(tokens[..., k], params["embed"][k])
             return x
-        return F.embedding(tokens, params["embed"])
+        return embedding(tokens, params["embed"])
 
     def lm_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         head = params["embed"] if self.cfg.tie_embeddings else params["lm_head"]

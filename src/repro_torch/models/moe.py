@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch import hints
 from repro_torch.models.common import dense_init, init_mlp, mlp_forward
 from repro_torch.quant.paths import expert_einsum
 
@@ -122,14 +123,19 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     buf.index_add_(0, slot, contrib)
     buf = buf.view(E, capacity, D)
 
-    # expert compute, batched over E
+    # expert compute, batched over E: EP (experts over model) when E
+    # divides the TP degree, else TP inside each expert (F over model)
+    ep = hints.tp_divides(E)
+    buf = hints.constrain(buf, ("tp" if ep else None, "dp", None))
     if cfg.mlp_gated:
         h = F.silu(expert_einsum("ecd,edf->ecf", buf, p["w_gate"])) * \
             expert_einsum("ecd,edf->ecf", buf, p["w_up"])
     else:
         h = F.gelu(expert_einsum("ecd,edf->ecf", buf, p["w_up"]),
                    approximate="tanh")
+    h = hints.constrain(h, ("tp", "dp", None) if ep else (None, "dp", "tp"))
     out_buf = expert_einsum("ecf,efd->ecd", h, p["w_down"])
+    out_buf = hints.constrain(out_buf, ("tp" if ep else None, "dp", None))
 
     # combine: gather back per assignment, weight by gate, sum over k
     gathered = out_buf.reshape(E * capacity, D).index_select(0, slot)

@@ -10,9 +10,10 @@ loop shape
 ``failure_hook`` lets tests kill the loop at a chosen step and assert
 bit-identical recovery: the data pipeline is a pure function of its
 cursor and the optimizer state is checkpointed, so a restarted run
-reproduces the uninterrupted loss curve exactly.  The reference's
-``state_shardings`` (re-sharding onto another mesh at restore) waits
-for the multi-device port.
+reproduces the uninterrupted loss curve exactly.  A restored state
+takes the layout of ``init_state()``'s: a DTensor state (``launch/train.py
+--distributed``) comes back on the current mesh, whatever layout saved
+it (the reference's ``state_shardings``).
 """
 from __future__ import annotations
 

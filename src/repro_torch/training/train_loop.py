@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import dispatch
+from repro_torch.kernels import _dtensor as _dt
 from repro_torch.models.model import Model
 from repro_torch.training.optimizer import AdamW, AdamWState
 from repro_torch.training.tree import tree_leaves, tree_map, tree_unflatten
@@ -62,6 +63,20 @@ def compress_grads_int8(grads):
     return out
 
 
+def _like_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its param's layout: a ``Partial()`` part of
+    a sum over ranks (a replicated weight applied to batch-split rows) is
+    all-reduced, or reduce-scattered onto a sharded param, here."""
+    if _dt.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _plain(v: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor's full value)."""
+    return v.full_tensor() if _dt.is_dtensor(v) else v
+
+
 def make_train_step(model: Model, opt: AdamW, *, remat: str = "blocks",
                     microbatches: int = 1, aux_weight: float = 0.01,
                     grad_compression: Optional[str] = None) -> Callable:
@@ -91,10 +106,10 @@ def make_train_step(model: Model, opt: AdamW, *, remat: str = "blocks",
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # a param the loss does not reach (the vlm's untied embedding)
         # gets zeros, as jax.grad gives
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else _like_param(g, p)
                  for p, g in zip(leaves, grads)]
         return (tree_unflatten(params, grads),
-                {k: v.detach() for k, v in metrics.items()})
+                {k: _plain(v.detach()) for k, v in metrics.items()})
 
     def train_step(state: Tuple[Any, AdamWState], batch: Dict):
         params, opt_state = state

@@ -61,6 +61,27 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, *rest: Any,
+                       prefix: Path = ()) -> Any:
+    """``tree_map`` with each leaf's path as ``fn``'s first argument."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      prefix=prefix + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, getattr(tree, f),
+                                               *(getattr(r, f) for r in rest),
+                                               prefix=prefix + (f,))
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, *(r[i] for r in rest),
+                                             prefix=prefix + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree, *rest)
+
+
 def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
     """``like``'s structure with ``leaves`` in ``leaves_with_path``'s
     order."""

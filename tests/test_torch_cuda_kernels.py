@@ -1208,3 +1208,175 @@ def test_jit_train_step_replays_equal_eager_steps(cuda, dtype):
     fresh = trainable(_to(params, cuda))
     state2, m = fn((fresh, opt.init(fresh)), _to(batches[0], cuda))
     assert state2 is state and float(m["loss"]) == runs["eager"][0][0]
+
+
+# ---------------------------------------------------------------- DTensors
+@pytest.fixture
+def mesh11(cuda):
+    """A 1x1 (data, model) CUDA mesh over a world-1 NCCL group on an
+    in-process store, destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    yield make_test_mesh(data=1, model=1, device_type="cuda")
+    dist.destroy_process_group()
+
+
+def _dt(mesh, t, *placements):
+    from torch.distributed.tensor import distribute_tensor
+    return None if t is None else distribute_tensor(t, mesh, list(placements))
+
+
+def _same(got, want, placements):
+    from torch.distributed.tensor import DTensor
+    assert isinstance(got, DTensor) and tuple(got.placements) == tuple(placements)
+    assert torch.equal(got.to_local(), want)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("split", ["slots", "heads"])
+def test_paged_decode_attention_dtensor(mesh11, quant, split):
+    """Kernel 2 through its wrapper on DTensors: slots over data (pools'
+    pages and rows gathered) or KV heads over model; equal to the
+    plain-tensor call, one launch."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.quant.kv import quantize_kv_write
+    R = Replicate()
+    dev = mesh11.device_type
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, page, Hkv, hd, max_blocks = 3, 16, 4, 128, 8
+    n_pages = 1 + B * max_blocks
+    q = torch.randn((B, 28, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((n_pages, page, Hkv, hd), generator=g, device=dev)
+    v = torch.randn((n_pages, page, Hkv, hd), generator=g, device=dev)
+    if quant:
+        (k, ks), (v, vs) = quantize_kv_write(k), quantize_kv_write(v)
+    else:
+        k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    bt = (torch.arange(B * max_blocks, device=dev, dtype=torch.int32) + 1).reshape(B, max_blocks)
+    lens = torch.tensor([100, 0, 128], dtype=torch.int32, device=dev)
+    want = pda_ops.paged_decode_attention(q, k, v, bt, lens, ks, vs)
+    qp, pp = (((Shard(0), R), (Shard(0), Shard(1))) if split == "slots"
+              else ((R, Shard(1)), (R, Shard(2))))
+    before = pda_ops.launches
+    got = pda_ops.paged_decode_attention(
+        _dt(mesh11, q, *qp), _dt(mesh11, k, *pp), _dt(mesh11, v, *pp),
+        _dt(mesh11, bt, qp[0], R), _dt(mesh11, lens, qp[0], R),
+        _dt(mesh11, ks, *pp), _dt(mesh11, vs, *pp))
+    assert pda_ops.launches == before + 1
+    _same(got, want, qp)
+
+
+@pytest.mark.parametrize("M", [1, 4, 512])
+@pytest.mark.parametrize("split", ["columns", "K"])
+def test_int4_matmul_dtensor(mesh11, M, split):
+    """Kernel 3 (GEMV and wgmma paths) through its wrapper on DTensors:
+    rows over data and columns over model, or K split (gathered)."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    dev = mesh11.device_type
+    g = torch.Generator(device=dev).manual_seed(M)
+    K, N, group = 1024, 512, 128
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    packed = torch.randint(0, 256, (K // 2, N), generator=g, device=dev, dtype=torch.uint8)
+    scales = 0.005 + 0.01 * torch.rand((K // group, N), generator=g, device=dev)
+    want = i4_ops.int4_matmul(x, packed, scales)
+    xp, wp, outp = (((Shard(0), R), (R, Shard(1)), (Shard(0), Shard(1))) if split == "columns"
+                    else ((R, Shard(1)), (Shard(0), R), (R, R)))
+    got = i4_ops.int4_matmul(_dt(mesh11, x, *xp), _dt(mesh11, packed, *wp),
+                             _dt(mesh11, scales, *wp))
+    _same(got, want, outp)
+
+
+@pytest.mark.parametrize("split", ["batch_heads", "replicated"])
+def test_ssd_update_dtensor(mesh11, split):
+    """Kernel 4 through its wrapper on DTensors, in place (out=h) on a
+    state split over batch and heads, as cache_shardings plans it."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    dev = mesh11.device_type
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, H, P, N, G = 2, 8, 64, 128, 2
+    h = torch.randn((B, H, P, N), generator=g, device=dev)
+    x = torch.randn((B, H, P), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((B, H), generator=g, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=g, device=dev))
+    Bm = torch.randn((B, G, N), generator=g, device=dev)
+    Cm = torch.randn((B, G, N), generator=g, device=dev)
+    want_h, want_y = ssd_ops.ssd_update(h.clone(), x, dt, A, Bm, Cm)
+    hp = (Shard(0), Shard(1)) if split == "batch_heads" else (R, R)
+    hd_ = _dt(mesh11, h.clone(), *hp)
+    got_h, got_y = ssd_ops.ssd_update(
+        hd_, _dt(mesh11, x, *hp), _dt(mesh11, dt, *hp),
+        _dt(mesh11, A, R, Shard(0) if split == "batch_heads" else R),
+        _dt(mesh11, Bm, hp[0], R), _dt(mesh11, Cm, hp[0], R), out=hd_)
+    assert got_h is hd_
+    _same(got_h, want_h, hp)
+    _same(got_y, want_y, hp)
+
+
+@pytest.mark.parametrize("split", ["rows", "D"])
+def test_rmsnorm_dtensor_grad(mesh11, split):
+    """Kernel 5 forward and backward on DTensors under grad: dx in x's
+    layout, dw Partial over the mesh dim that splits the rows; both
+    equal to the plain-tensor call's."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    R = Replicate()
+    dev = mesh11.device_type
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = (3 * torch.randn((2, 512, 2048), generator=g, device=dev)).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn((2048,), generator=g, device=dev)).to(torch.bfloat16)
+    dy = torch.randn_like(x)
+    xp, outp, dwp = (((Shard(0), R), (Shard(0), R), (Partial(), R)) if split == "rows"
+                     else ((R, Shard(2)), (R, R), (R, R)))
+    before = (rms_ops.launches, rms_ops.bwd_launches)
+    want = rms_ops.rmsnorm(x, w)
+    want_dx, want_dw = rms_ops.rmsnorm_bwd(x, w, dy)
+    xd = _dt(mesh11, x, *xp).requires_grad_(True)
+    wd = _dt(mesh11, w, R, R).requires_grad_(True)
+    y = rms_ops.rmsnorm(xd, wd)
+    dx, dw = torch.autograd.grad(y, (xd, wd), _dt(mesh11, dy, *outp))
+    assert (rms_ops.launches, rms_ops.bwd_launches) == (before[0] + 2, before[1] + 2)
+    _same(y, want, outp)
+    _same(dx, want_dx, xp)
+    _same(dw, want_dw, dwp)
+
+
+def test_check_refuses_null_pointers(mesh11):
+    """A DTensor reaching a launcher's check is refused on the host."""
+    from torch.distributed.tensor import Replicate
+    R = Replicate()
+    dev = mesh11.device_type
+    x = _dt(mesh11, torch.randn((4, 256), device=dev), R, R)
+    with pytest.raises(ValueError, match="rmsnorm"):
+        rms_ops._check(x, None)
+    q = _dt(mesh11, torch.randn((1, 8, 64), device=dev), R, R)
+    k = torch.randn((1, 32, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="decode_attention"):
+        da_ops._check(q, k, k, torch.ones(32, dtype=torch.bool, device=dev))
+
+
+def test_train_distributed_torchrun(cuda, tmp_path):
+    """``--distributed`` under ``torch.distributed.run`` with one process
+    (NCCL, a TCP rendezvous on localhost): its loss line equals the
+    run without the flag."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    args = ["-m", "repro_torch.launch.train", "--arch", "qwen2.5-3b", "--reduced",
+            "--steps", "6"]
+    lines = []
+    for pre, extra in ((["-m", "torch.distributed.run", "--standalone",
+                         "--nproc-per-node", "1"], ["--distributed"]), ([], [])):
+        out = subprocess.run([sys.executable, *pre, *args, *extra], env=env, cwd=root,
+                             capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        lines.append(out.stdout.strip().splitlines())
+    assert any("uncaptured" in line for line in lines[0])
+    assert lines[0][-1] == lines[1][-1]

@@ -265,8 +265,15 @@ def test_train_cli_cpu(tmp_path):
     assert latest_step(str(tmp_path)) == 4
 
 
-def test_train_cli_distributed_raises():
+def test_train_cli_distributed_raises(monkeypatch):
+    """Outside ``torch.distributed.run`` (no process group, no RANK in the
+    environment) ``--distributed`` cannot start a group and raises; under
+    the launcher it trains (tests/test_torch_multidevice.py)."""
+    import torch.distributed as dist
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK"):
         train.main(["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu",
                     "--distributed"])
+    assert not dist.is_initialized()
