@@ -243,7 +243,25 @@ Phases, in order; each raises on failure and nothing catches:
     launches a step.  (d) ``launch.train.main`` in-process with and
     without ``--distributed`` (qwen2.5-3b reduced, 20 steps): equal loss
     lines.  Its numbers go on a ``{"distributed": ...}`` line.
-20. the kernels line: one JSON object with every ported kernel's
+20. the analysis and the dry run (``repro_torch.analysis``,
+    ``launch/dryrun.py``).  (a) ``python -m repro_torch.launch.dryrun``
+    in a subprocess of its own (a fake world of 256 / 512 ranks is
+    process-global; phase 19's group is gone by then) on four full-width
+    cells: qwen2.5-3b ``train_4k`` on ``pod``, qwen2.5-3b ``decode_32k``
+    on ``multipod``, llama4-scout-17b-a16e ``decode_32k`` on ``pod`` (the
+    int4_fused weights) and mamba2-2.7b ``long_500k`` on ``pod``, into
+    ``build/dryrun/``; each must end ``ok`` (a failed cell's traceback is
+    printed); each cell's trace seconds, collective counts by kind, wire
+    bytes and argument bytes a rank, FLOPs a rank.  (b) the one-card
+    roofline: ``analytic.estimate`` (n_chips 1, tp 1, dp 1, no
+    collectives) through the copied ``roofline.build_row`` with
+    ``analysis.links.h100_chip()`` for qwen2.5-7b decode (batch 1, ctx
+    2048) and qwen2.5-3b training (batch 1, seq 2048), each floor beside
+    phase 10's graph p50 and 18c's graph step p50 of the same run (their
+    ratio), and the estimate's optimizer bytes as a time at 3.35 TB/s
+    beside 18c's AdamW ms; the rows alone when phases 10 and 18c did not
+    run.  Its numbers go on an ``{"analysis": ...}`` line.
+21. the kernels line: one JSON object with every ported kernel's
     numbers (all five, and kernel 5's backward: no TPU kernel is left to
     port; ``device_us`` and
     ``b2b_us`` for kernels 4 and 5, null for the others); ``launches`` sums
@@ -253,14 +271,15 @@ Phases, in order; each raises on failure and nothing catches:
     and walls.  ``rmsnorm_bwd`` (the backward, port-only) counts phase
     18c's and 19c's launches; 19b and 19c's DTensor arm are paths of
     their own in ``launches_by_path``.
-21. last line: ``{"ok": true, "device": {...}}``.
+22. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only kernels
 
 runs phases 1-6 only and prints the kernels line (launches null) without
 the ``ok`` line: the quick call for tuning a kernel.  ``--only families``
 runs phases 1, 9c and 17 only, ``--only train`` phases 1, 5b and 18,
-``--only dist`` phases 1 and 19 (no kernels line, no ``ok`` line).
+``--only dist`` phases 1 and 19, ``--only analysis`` phases 1 and 20
+(no kernels line, no ``ok`` line).
 Every phase prints its name on a line of its own before it starts.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -275,6 +294,7 @@ import contextlib
 import gc
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1305,6 +1325,7 @@ def main_path(dev):
         f"(eager {fc.t_floor_ms / p50_eager:.4f})")
     log("  tok/s: " + ", ".join(f"{r.tokens_per_s:.2f}" for r in runs)
         + " (streamed, streamed, fused)")
+    MEASURED["qwen2.5-7b decode graph p50 ms"] = p50
 
     # first decode step: kernel route against the sdpa route
     tok = runs[0].tokens[:, :1]
@@ -3050,6 +3071,8 @@ def train_full_width(dev):
     free_card()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 18c took {out['seconds']:.1f} s")
+    MEASURED["qwen2.5-3b train graph step p50 ms"] = out["graph"]["p50_ms"]
+    MEASURED["qwen2.5-3b AdamW ms"] = out["adamw_ms"]
     return out
 
 
@@ -3365,6 +3388,123 @@ def distributed(dev):
     return {"decode": decode_counts, "train": train_counts}, out
 
 
+# ---------------------------------------------------------------- phase 20
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "pod"),
+                ("qwen2.5-3b", "decode_32k", "multipod"),
+                ("llama4-scout-17b-a16e", "decode_32k", "pod"),
+                ("mamba2-2.7b", "long_500k", "pod"))
+DRYRUN_TIMEOUT_S = 400
+MEASURED = {}   # phase 10's and 18c's numbers, read by phase 20b
+
+
+def dry_run_cells():
+    """20a: ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS in a
+    subprocess of its own (a fake world of 256 / 512 ranks is
+    process-global and cannot share a process with phase 19's group);
+    every cell must end ``ok``.  Returns each cell's numbers."""
+    out_dir = ROOT / "build" / "dryrun"
+    cells = [f"{a}:{s}:{m}" for a, s, m in DRYRUN_CELLS]
+    log("== phase 20a: the dry run on meta DTensors over a fake world, in a "
+        f"subprocess: {', '.join(cells)}")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--force",
+           "--out", str(out_dir)] + [x for c in cells for x in ("--cell", c)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.strip():
+            log("  " + line)
+    out = {"wall_s": wall, "cells": {}}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cell = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json").read_text())
+        if cell["status"] != "ok":
+            log(cell.get("traceback", ""))
+            raise AssertionError(f"dry run {arch} x {shape} x {mesh}: "
+                                 f"{cell['status']} {cell.get('error', '')}")
+        colls = cell["collectives"]
+        counts = {k: v["count"] for k, v in colls["by_kind"].items()}
+        mem = cell["memory"]
+        log(f"  {arch} x {shape} x {mesh} ({cell['n_chips']} ranks): trace "
+            f"{cell['trace_s']} s; collectives {counts}; wire "
+            f"{colls['total_wire_bytes_per_chip'] / 1e9:.4f} GB a rank; argument "
+            f"bytes a rank {mem['per_chip_bytes'] / 1e9:.4f} GB (fits an H100: "
+            f"{mem['fits_h100']}); FLOPs a rank "
+            f"{cell['flop_counter']['flops_per_rank']:.4e} (analytic, global: "
+            f"{cell['analytic']['flops']:.4e})")
+        out["cells"][f"{arch} x {shape} x {mesh}"] = dict(
+            trace_s=cell["trace_s"], collectives=counts,
+            wire_bytes_per_rank=colls["total_wire_bytes_per_chip"],
+            argument_bytes_per_rank=mem["per_chip_bytes"],
+            flops_per_rank=cell["flop_counter"]["flops_per_rank"])
+    if proc.returncode:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"the dry run exited {proc.returncode}")
+    log(f"  the dry run's subprocess took {wall:.1f} s")
+    return out
+
+
+def one_card_roofline():
+    """20b: ``analytic.estimate`` on one card (n_chips 1, tp 1, dp 1, no
+    collectives) through the copied ``roofline.build_row`` with the
+    H100 and its NVLink term (``analysis/links.h100_chip``), beside this
+    run's phase 10 graph p50 and phase 18c graph step p50 where they
+    ran; the estimate's optimizer bytes as a time at the card's HBM
+    rate beside 18c's AdamW ms."""
+    from repro_torch.analysis import analytic, roofline
+    from repro_torch.analysis.links import h100_chip
+    from repro_torch.configs import ShapeSpec, get_config
+    log("== phase 20b: the one-card roofline (analytic.estimate, build_row with "
+        "h100_chip()) beside this run's measurements")
+    chip = h100_chip()
+    cases = (("qwen2.5-7b", ShapeSpec("decode_2k", PROMPT, 1, "decode"),
+              "qwen2.5-7b decode graph p50 ms"),
+             ("qwen2.5-3b", ShapeSpec("train_2k", TRAIN_SEQ, 1, "train"),
+              "qwen2.5-3b train graph step p50 ms"))
+    out = {}
+    for arch, shape, measured_key in cases:
+        est = analytic.estimate(get_config(arch), shape, n_chips=1, tp=1, dp=1)
+        cell = {"arch": arch, "shape": shape.name, "mesh": "1 card", "n_chips": 1,
+                "analytic": {"flops": est.flops,
+                             "hbm_bytes_per_chip": est.hbm_bytes_per_chip,
+                             "model_flops": est.model_flops},
+                "collectives": {"total_wire_bytes_per_chip": 0.0}}
+        row = roofline.build_row(cell, chip)
+        res = dict(compute_ms=row.compute_t * 1e3, memory_ms=row.memory_t * 1e3,
+                   collective_ms=row.collective_t * 1e3, step_floor_ms=row.step_t * 1e3,
+                   dominant=row.dominant, measured_ms=MEASURED.get(measured_key))
+        line = (f"  {arch} {shape.kind} batch 1, {shape.seq_len} tokens: compute "
+                f"{res['compute_ms']:.4f} ms, memory {res['memory_ms']:.4f} ms, "
+                f"collective {res['collective_ms']:.4f} ms -> floor "
+                f"{res['step_floor_ms']:.4f} ms ({row.dominant}-bound)")
+        if res["measured_ms"] is not None:
+            res["floor_over_measured"] = res["step_floor_ms"] / res["measured_ms"]
+            line += (f"; measured {res['measured_ms']:.4f} ms ({measured_key}), "
+                     f"floor / measured {res['floor_over_measured']:.4f}")
+        log(line)
+        if shape.kind == "train":
+            res["opt_bytes"] = est.detail["opt_bytes"]
+            res["opt_ms_at_hbm"] = est.detail["opt_bytes"] / HBM_BPS * 1e3
+            adamw = MEASURED.get("qwen2.5-3b AdamW ms")
+            log(f"  the estimate's optimizer bytes {res['opt_bytes'] / 1e9:.4f} GB "
+                f"(f32 moments read and written) take {res['opt_ms_at_hbm']:.4f} ms "
+                f"at {HBM_BPS / 1e12:.2f} TB/s"
+                + (f"; 18c's AdamW update took {adamw:.2f} ms" if adamw else ""))
+            res["adamw_ms"] = adamw
+        out[f"{arch} {shape.kind}"] = res
+    return out
+
+
+def analysis():
+    """Phase 20; returns its numbers."""
+    t_phase = time.perf_counter()
+    out = {"dryrun": dry_run_cells(), "roofline": one_card_roofline()}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 20 took {out['seconds']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- main
 PENDING = []    # TPU kernels still to port: none
 
@@ -3382,7 +3522,8 @@ def kernels_line(rows) -> str:
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels", "families", "train", "dist"],
+    ap.add_argument("--only", choices=["kernels", "families", "train", "dist",
+                                       "analysis"],
                     help="kernels: phases 1-6 and the kernels line (launches "
                          "null), no main path and no ok line; families: "
                          "phases 1, 9c and 17 (the moe, vlm and audio "
@@ -3390,6 +3531,8 @@ def main(argv=None) -> int:
                          "phases 1, 5b and 18 (training), no kernels line "
                          "and no ok line; dist: phases 1 and 19 (the "
                          "multi-device runtime), no kernels line and no ok "
+                         "line; analysis: phases 1 and 20 (the dry run and "
+                         "the one-card roofline), no kernels line and no ok "
                          "line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3399,6 +3542,10 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     smi, dev = setup()
+    if args.only == "analysis":
+        log(json.dumps({"analysis": analysis()}))
+        log(smi.splitlines()[0])
+        return 0
     if args.only == "dist":
         _, dist_out = distributed(dev)
         log(json.dumps({"distributed": dist_out}))
@@ -3450,6 +3597,7 @@ def main(argv=None) -> int:
     fc, fam = families_full_width(dev)
     tc, train = training(dev)
     dc, dist_out = distributed(dev)
+    analysis_out = analysis()
     dense, int4 = "qwen2.5-7b batch-1 bf16", "qwen2.5-7b batch-1 int4"
     paged = ("qwen2.5-7b paged bf16 KV", "qwen2.5-7b paged int8 KV")
     tiered = ("qwen2.5-7b tiered paged bf16 KV", "qwen2.5-7b tiered paged int8 KV")
@@ -3489,6 +3637,7 @@ def main(argv=None) -> int:
     log(json.dumps({"families": fam}))
     log(json.dumps({"training": train}))
     log(json.dumps({"distributed": dist_out}))
+    log(json.dumps({"analysis": analysis_out}))
     log(smi.splitlines()[0])
     print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {

@@ -136,6 +136,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               ["bh."])
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, mask)
+    if q.device.type == "meta":
+        # the dry run's shapes: no data, nothing computed
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"no decode_attention for device {q.device}")
     _check(q, k, v, mask)

@@ -105,6 +105,10 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                               ["mn"], kwargs={"group": group})
     if x.device.type == "cpu":
         return ref.int4_matmul_ref(x, packed, scales, group)
+    if x.device.type == "meta":
+        # the dry run's shapes: no data, nothing computed
+        return torch.empty((x.shape[0], packed.shape[1]), dtype=x.dtype,
+                           device="meta")
     if x.device.type != "cuda":
         raise ValueError(f"no int4_matmul for device {x.device}")
     _check(x, packed, scales, group)

@@ -182,6 +182,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
             out = ref.paged_decode_attention_ref(q, k_pool, v_pool,
                                                  block_table, lengths)
         return out.to(q.dtype)
+    if q.device.type == "meta":
+        # the dry run's shapes: no data, nothing computed
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"no paged_decode_attention for device {q.device}")
     _check(q, k_pool, v_pool, block_table, lengths, k_scale_pool, v_scale_pool)

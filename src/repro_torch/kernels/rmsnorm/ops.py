@@ -170,6 +170,9 @@ def _forward(x: torch.Tensor, w: Optional[torch.Tensor],
                               [(x, _rows(x)), (w, ".")], [_rows(x)])
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
+    if x.device.type == "meta":
+        # the dry run's shapes: no data, nothing computed
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
     if x.device.type != "cuda":
         raise ValueError(f"no rmsnorm for device {x.device}")
     _check(x, w)
@@ -237,6 +240,10 @@ def rmsnorm_bwd(x: torch.Tensor, w: Optional[torch.Tensor], dy: torch.Tensor,
                               [_rows(x), "."], sums=(False, True))
     if x.device.type == "cpu":
         return ref.rmsnorm_bwd_ref(x, w, dy, eps)
+    if x.device.type == "meta":
+        # the dry run's shapes: no data, nothing computed
+        return (torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                None if w is None else torch.empty_like(w))
     if x.device.type != "cuda":
         raise ValueError(f"no rmsnorm_bwd for device {x.device}")
     _check(x, w)

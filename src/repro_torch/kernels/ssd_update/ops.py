@@ -163,6 +163,11 @@ def ssd_update(h: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
             out.copy_(h_new)
             h_new = out
         return h_new, y
+    if h.device.type == "meta":
+        # the dry run's shapes: no data, nothing computed
+        B, H, P, _ = h.shape
+        return (torch.empty_like(h) if out is None else out,
+                torch.empty((B, H, P), dtype=torch.float32, device="meta"))
     if h.device.type != "cuda":
         raise ValueError(f"no ssd_update for device {h.device}")
     _check(h, x, dt, A, Bm, Cm, out)

@@ -297,10 +297,15 @@ def distribute(tree: Any, shardings: Any) -> Any:
     """``tree``'s tensors as DTensors laid out by the matching
     ``Layout`` leaves of ``shardings`` (a tree like ``tree``, as
     ``params_shardings`` returns); a tensor's ``requires_grad`` carries
-    over.  Every rank must hold the same full tensors."""
+    over, and a QuantizedTensor's codes and scales are laid out by its
+    layouts' ``data`` and ``scales``.  Every rank must hold the same full
+    tensors."""
     from torch.distributed.tensor import distribute_tensor
 
     def put(t, layout: Layout):
+        if isinstance(t, QuantizedTensor):
+            return QuantizedTensor(put(t.data, layout.data),
+                                   put(t.scales, layout.scales), t.bits, t.path)
         d = distribute_tensor(t.detach(), layout.mesh, list(layout.placements))
         return d.requires_grad_(t.requires_grad)
     return tree_map(put, tree, shardings)

@@ -37,9 +37,18 @@ Params = Dict[str, torch.Tensor]
 DECODE_BACKENDS = ("sdpa", "math", "split_kv", "cuda")
 
 # above this sequence length, full attention runs q-block-chunked (exact
-# math): scores never materialise beyond (bq, S).
+# math): scores never materialise beyond (bq, S).  configure() lets
+# launchers (the dry run's policy) retune them.
 CHUNKED_ATTN_THRESHOLD = 8192
 CHUNK_Q = 1024
+
+
+def configure(threshold: Optional[int] = None, chunk_q: Optional[int] = None):
+    global CHUNKED_ATTN_THRESHOLD, CHUNK_Q
+    if threshold is not None:
+        CHUNKED_ATTN_THRESHOLD = threshold
+    if chunk_q is not None:
+        CHUNK_Q = chunk_q
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype) -> Params:
@@ -76,8 +85,13 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor, cfg: ArchConfig) -> torch.Tens
     """q (B,Sq,Hq,hd), k (B,Sk,Hkv,hd) -> scores (B,Hkv,G,Sq,Sk) f32.
 
     Operands in their own precision, products summed in f32 (the
-    reference's ``preferred_element_type=f32``): a bf16 product is exact
-    in f32, so an f32 einsum over the upcast operands is the same.
+    reference's ``preferred_element_type=f32``).  The route is chosen by
+    device and dtype alone (``_on_tensor_cores``): bf16 or f16 operands
+    on the card multiply on the tensor cores with an f32 result
+    (``_BmmF32``); anything else (the CPU, which has no
+    ``aten::bmm.dtype``, f32 operands, the dry run's meta tensors) runs
+    an f32 einsum over the upcast operands, which is the same function
+    up to summation order, since a bf16 product is exact in f32.
     DTensors: each rank's batch rows, query rows and KV heads (with
     their query heads), the keys and head_dim gathered
     (``_dtensor.local_call``); DTensor's own einsum would flatten two
@@ -88,17 +102,57 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor, cfg: ArchConfig) -> torch.Tens
     return _gqa_scores_local(q, k)
 
 
+def _on_tensor_cores(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether a contraction of a and b takes ``_BmmF32``: both CUDA
+    tensors of one 16-bit float dtype."""
+    return (a.device.type == "cuda" and a.dtype == b.dtype
+            and a.dtype in (torch.bfloat16, torch.float16))
+
+
+class _BmmF32(torch.autograd.Function):
+    """a (N,M,K) @ b (N,K,P) in their own 16-bit dtype with an f32
+    result (``torch.bmm(out_dtype=torch.float32)``: cuBLAS on the tensor
+    cores, f32 accumulation).  Torch gives ``aten::bmm.dtype`` no
+    derivative, so the backward is written here: the two transposed
+    products of the same kind, the f32 output gradient rounded to the
+    operands' dtype first, the gradients returned in it."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.bmm(g, b.transpose(1, 2), out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.bmm(a.transpose(1, 2), g, out_dtype=torch.float32).to(b.dtype)
+        return da, db
+
+
 def _gqa_scores_local(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     B, Sq, Hq, hd = q.shape
-    Hkv = k.shape[2]
-    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, hd)
-    return torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * (hd ** -0.5)
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, hd)
+    if not _on_tensor_cores(q, k):
+        return torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * (hd ** -0.5)
+    # (B*Hkv, G*Sq, hd) @ (B*Hkv, hd, Sk)
+    a = qg.permute(0, 2, 3, 1, 4).reshape(B * Hkv, G * Sq, hd)
+    b = k.permute(0, 2, 1, 3).reshape(B * Hkv, Sk, hd).transpose(1, 2)
+    s = _BmmF32.apply(a, b)
+    return s.view(B, Hkv, G, Sq, Sk) * (hd ** -0.5)
 
 
 def _gqa_out(probs: torch.Tensor, v: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """probs (B,Hkv,G,Sq,Sk) f32, v (B,Sk,Hkv,hd) -> (B,Sq,Hq*hd) f32.
     The probabilities are rounded to v's dtype first, as the reference
-    does.  DTensors as in ``_gqa_scores``."""
+    does; the route and DTensors as in ``_gqa_scores``."""
     if _dt.any_dtensor(probs, v):
         return _dt.local_call(_gqa_out_local, [(probs, "bhgq."), (v, "b.h.")],
                               ["bqh"])
@@ -106,9 +160,17 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor, cfg: ArchConfig) -> torch.Ten
 
 
 def _gqa_out_local(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    o = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype).float(), v.float())
-    B, Sq = o.shape[:2]
-    return o.reshape(B, Sq, -1)
+    p = probs.to(v.dtype)
+    if not _on_tensor_cores(p, v):
+        o = torch.einsum("bkgqs,bskh->bqkgh", p.float(), v.float())
+        B, Sq = o.shape[:2]
+        return o.reshape(B, Sq, -1)
+    B, Hkv, G, Sq, Sk = p.shape
+    hd = v.shape[-1]
+    # (B*Hkv, G*Sq, Sk) @ (B*Hkv, Sk, hd)
+    o = _BmmF32.apply(p.reshape(B * Hkv, G * Sq, Sk),
+                      v.permute(0, 2, 1, 3).reshape(B * Hkv, Sk, hd))
+    return o.view(B, Hkv, G, Sq, hd).permute(0, 3, 1, 2, 4).reshape(B, Sq, -1)
 
 
 def _causal_probs(scores: torch.Tensor, q0: int, S: int,
@@ -143,7 +205,7 @@ def attention_full(p: Params, x: torch.Tensor, angles: torch.Tensor,
         scores = hints.constrain_first_fit(
             _gqa_scores(q, k, cfg), [("dp", "tp"), ("dp", None, None, "tp")])
         probs = _causal_probs(scores, 0, S, cfg.sliding_window)
-        out = _gqa_out(probs, v, cfg).to(x.dtype)
+        out = _heads_split(_gqa_out(probs, v, cfg).to(x.dtype))
         return matmul(out, p["wo"]), (k, v)
 
     bq = CHUNK_Q
@@ -156,8 +218,17 @@ def attention_full(p: Params, x: torch.Tensor, angles: torch.Tensor,
             _gqa_scores(qi, k, cfg), [("dp", "tp"), ("dp", None, None, "tp")])
         probs = _causal_probs(scores, i * bq, S, cfg.sliding_window)
         blocks.append(_gqa_out(probs, v, cfg).to(x.dtype))
-    out = torch.cat(blocks, dim=1)
+    out = _heads_split(torch.cat(blocks, dim=1))
     return matmul(out, p["wo"]), (k, v)
+
+
+def _heads_split(out: torch.Tensor) -> torch.Tensor:
+    """The attention output (B, S, Hq*hd) with its heads over ``tp``, as
+    q's were: under the query-sequence fallback of the scores' hint a
+    DTensor output comes back split over S, which ``wo``'s matmul would
+    flatten into its rows (torch 2.11's DTensor refuses to flatten a
+    split inner dim).  A no-op without a mesh."""
+    return hints.constrain(out, ("dp", None, "tp"))
 
 
 # --------------------------------------------------------------------------

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dispatch import StepProgram
+from repro_torch.kernels import _dtensor as _dt
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.common import (apply_norm, apply_rope, cross_entropy,
@@ -62,6 +63,27 @@ def resolve_device(device=None) -> torch.device:
 ATTENTION_FAMILIES = ("dense", "vlm", "audio", "moe")
 REMAT = ("none", "blocks", "full")
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
+def _codebook_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) against the K codebooks' heads (K, V, D) -> (B, S, K, V)."""
+    return torch.einsum("bsd,kvd->bskv", x, head)
+
+
+class _MetaFactories(torch.overrides.TorchFunctionMode):
+    """Every tensor factory call (``randn``, ``rand``, ``zeros``, ``ones``,
+    ``empty``, ``full``) made under this mode returns a meta tensor of
+    the shape and dtype asked for, and draws from no generator."""
+
+    FACTORIES = frozenset({torch.randn, torch.rand, torch.zeros, torch.ones,
+                           torch.empty, torch.full})
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func in self.FACTORIES:
+            kwargs.pop("generator", None)
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
 
 
 class Model:
@@ -137,6 +159,18 @@ class Model:
         device (weights are made where they are used)."""
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on {self.device}")
+        return self._init_tree(gen)
+
+    def abstract_params(self) -> Params:
+        """The tree ``init`` returns, leaf for leaf (shapes, dtypes), as
+        meta tensors: ``init``'s own code runs with every factory call
+        sent to the meta device and its generator dropped, so nothing is
+        drawn and nothing is allocated (the reference's ``jax.eval_shape``
+        of ``init``).  The dry run's params."""
+        with _MetaFactories():
+            return self._init_tree(torch.Generator())
+
+    def _init_tree(self, gen: torch.Generator) -> Params:
         cfg, dt = self.cfg, self.dtype
 
         def tables():
@@ -173,7 +207,12 @@ class Model:
     def lm_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         head = params["embed"] if self.cfg.tie_embeddings else params["lm_head"]
         if self.cfg.n_codebooks:
-            return torch.einsum("bsd,kvd->bskv", x, head)
+            if _dt.any_dtensor(x, head):
+                # on local shards: DTensor's own einsum plans a search over
+                # every placement of a 3-D mesh (minutes in the dry run)
+                return _dt.local_call(_codebook_logits, [(x, "bs."), (head, "kv.")],
+                                      ["bskv"])
+            return _codebook_logits(x, head)
         return x @ head.T
 
     # ------------------------------------------------------------------
@@ -760,3 +799,36 @@ class Model:
         stages = [embed_stage] + [make_block_stage(i) for i in range(cfg.n_layers)] \
             + [head_stage]
         return StepProgram(stages)
+
+
+# --------------------------------------------------------------------------
+# input specs (meta tensors, no allocation): the dry run's inputs
+# --------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, *, seq_len: int, batch: int, kind: str
+                ) -> Dict[str, torch.Tensor]:
+    """Abstract inputs of a train, prefill or decode step, as meta
+    tensors with the reference's keys (``repro.models.model.input_specs``).
+
+    vlm: bf16 patch embeddings and (B, S, 3) t/h/w positions replace the
+    token ids for the full-sequence kinds; decode feeds tokens.  audio:
+    per-codebook ids.  Ids are int64, as the port's batches are (the
+    reference's are int32)."""
+    def spec(shape, dtype=torch.int64):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    if kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            specs = {"embeds": spec((batch, seq_len, cfg.d_model), torch.bfloat16),
+                     "positions": spec((batch, seq_len, 3))}
+        elif cfg.family == "audio":
+            specs = {"tokens": spec((batch, seq_len, cfg.n_codebooks))}
+        else:
+            specs = {"tokens": spec((batch, seq_len))}
+        if kind == "train":
+            specs["labels"] = spec((batch, seq_len, cfg.n_codebooks)
+                                   if cfg.family == "audio" else (batch, seq_len))
+        return specs
+    # decode: one new token; the cache of seq_len is made separately
+    if cfg.family == "audio":
+        return {"tokens": spec((batch, 1, cfg.n_codebooks))}
+    return {"tokens": spec((batch, 1))}

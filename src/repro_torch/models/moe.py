@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import _dtensor as _dt
 from repro_torch.launch import hints
 from repro_torch.models.common import dense_init, init_mlp, mlp_forward
 from repro_torch.quant.paths import expert_einsum
@@ -91,6 +92,21 @@ def capacity_for(T: int, k: int, capacity_factor: float, E: int) -> int:
     return capacity
 
 
+def _dispatch_rows(n_rows: int, slot: torch.Tensor, contrib: torch.Tensor
+                   ) -> torch.Tensor:
+    """Zeros (n_rows, D) in contrib's dtype with each row ``contrib[i]``
+    added at row ``slot[i]``.  DTensors run on local shards
+    (``_dtensor.local_call``): every rank gathers all the slots and
+    their rows, and D stays as it is split; DTensor has no in-place
+    scatter into a tensor it would have to reshard."""
+    if _dt.any_dtensor(slot, contrib):
+        return _dt.local_call(lambda s, c: _dispatch_rows(n_rows, s, c),
+                              [(slot, "."), (contrib, ".d")], [".d"])
+    buf = torch.zeros((n_rows, contrib.shape[1]), dtype=contrib.dtype,
+                      device=contrib.device)
+    return buf.index_add_(0, slot, contrib)
+
+
 def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                 with_aux: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -119,9 +135,7 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     slot = flat_e * capacity + safe_rank                      # (T*k,) into E*C
     xs = xt[:, None].expand(T, k, D).reshape(T * k, D)        # xt[tok_of_slot]
     contrib = torch.where(keep[:, None], xs, 0)
-    buf = torch.zeros((E * capacity, D), dtype=x.dtype, device=x.device)
-    buf.index_add_(0, slot, contrib)
-    buf = buf.view(E, capacity, D)
+    buf = _dispatch_rows(E * capacity, slot, contrib).view(E, capacity, D)
 
     # expert compute, batched over E: EP (experts over model) when E
     # divides the TP degree, else TP inside each expert (F over model)

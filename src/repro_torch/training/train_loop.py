@@ -121,8 +121,9 @@ def make_train_step(model: Model, opt: AdamW, *, remat: str = "blocks",
                 raise ValueError(f"batch {b} does not split into "
                                  f"{microbatches} microbatches")
             n = b // microbatches
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            # zeros laid out as each param (a DTensor's too)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                             params)
             for i in range(microbatches):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 g, metrics = grads_of(params, mb)

@@ -1210,6 +1210,96 @@ def test_jit_train_step_replays_equal_eager_steps(cuda, dtype):
     assert state2 is state and float(m["loss"]) == runs["eager"][0][0]
 
 
+# ------------------------------------------- the attention contraction
+# _gqa_scores / _gqa_out on the tensor cores (bf16 operands, f32 result)
+# against the f32 einsum over the upcast operands, the route CPU tensors
+# take.  Both sum exact products in f32, so an entry differs by at most
+# the two sums' rounding: |d| <= 2 n 2^-24 sum|a||b| over its n terms.
+GQA_SHAPES = [  # B, Sq, Sk, Hq, Hkv, hd: qwen2.5-7b and qwen2.5-3b heads
+    (1, 1, 2048, 28, 4, 128), (1, 512, 512, 28, 4, 128), (2, 64, 1024, 28, 4, 128),
+    (1, 1, 2048, 16, 2, 128), (1, 512, 512, 16, 2, 128), (2, 64, 1024, 16, 2, 128)]
+
+
+def _gqa_inputs(cuda, B, Sq, Sk, Hq, Hkv, hd, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, Sq, Hq, hd), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, Sk, Hkv, hd), generator=g, device=cuda).bfloat16()
+    v = torch.randn((B, Sk, Hkv, hd), generator=g, device=cuda).bfloat16()
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd", GQA_SHAPES)
+def test_gqa_contraction_on_tensor_cores(cuda, B, Sq, Sk, Hq, Hkv, hd):
+    """Scores and outputs of the bf16 route within the summation-order
+    bound of the f32 einsum's, both f32, in the same layout."""
+    from repro_torch.models import attention as attn
+    q, k, v = _gqa_inputs(cuda, B, Sq, Sk, Hq, Hkv, hd)
+    assert attn._on_tensor_cores(q, k)
+    s = attn._gqa_scores_local(q, k)
+    s_ref = attn._gqa_scores_local(q.cpu(), k.cpu())
+    assert s.dtype == torch.float32 and s.shape == s_ref.shape
+    # the sums' bound, scaled by hd^-0.5, and each route's rounding of that
+    # product
+    bound = 2 * hd * 2.0 ** -24 * attn._gqa_scores_local(q.cpu().abs(), k.cpu().abs())
+    bound += 2.0 ** -23 * s_ref.abs()
+    assert bool(((s.cpu() - s_ref).abs() <= bound + 1e-30).all())
+    probs = torch.softmax(s, dim=-1)
+    o = attn._gqa_out_local(probs, v)
+    o_ref = attn._gqa_out_local(probs.cpu(), v.cpu())
+    assert o.dtype == torch.float32 and o.shape == o_ref.shape
+    bound = 2 * Sk * 2.0 ** -24 * attn._gqa_out_local(
+        probs.cpu().bfloat16().float().abs(), v.cpu().abs())
+    assert bool(((o.cpu() - o_ref).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,hd", GQA_SHAPES[1:3] + GQA_SHAPES[4:])
+def test_gqa_contraction_grads_on_tensor_cores(cuda, B, Sq, Sk, Hq, Hkv, hd):
+    """Gradients of q, k and v through scores, softmax and output: the
+    bf16 route (its backward rounds the f32 output gradient to bf16 and
+    multiplies on the tensor cores) against the f32 einsum's, both in
+    bf16, within the file's bf16 tolerance (2e-2 x max|grad|)."""
+    from repro_torch.models import attention as attn
+    q, k, v = _gqa_inputs(cuda, B, Sq, Sk, Hq, Hkv, hd, seed=1)
+    w = torch.randn((B, Sq, Hq * hd), generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        s = attn._gqa_scores_local(leaves[0], leaves[1])
+        o = attn._gqa_out_local(torch.softmax(s, dim=-1), leaves[2])
+        grads[str(dev)] = torch.autograd.grad((o * w.to(dev)).sum(), leaves)
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        assert got.dtype == torch.bfloat16
+        _close(got.cpu(), want, torch.bfloat16)
+
+
+def test_bf16_train_step_graph_losses_on_tensor_cores(cuda, monkeypatch):
+    """The reduced bf16 model's captured train step (jit_train_step) with
+    the attention on the tensor cores: its losses equal the eager step's
+    bit for bit, and stay within 5e-3 x |loss| of the same captured step
+    with the contraction forced onto the f32 einsum, over 4 steps."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import Model
+    from repro_torch.training import (AdamW, jit_train_step, make_train_step,
+                                      trainable)
+    cfg, params, batches = _train_setup(cuda, "bfloat16")
+    opt = AdamW(lr=1e-3)
+    runs = {}
+    for label, f32 in (("eager", False), ("graph", False), ("graph f32", True)):
+        if f32:
+            monkeypatch.setattr(attn, "_on_tensor_cores", lambda a, b: False)
+        step = make_train_step(Model(cfg, device=cuda), opt, remat="blocks")
+        fn = step if label == "eager" else jit_train_step(step)
+        p = trainable(_to(params, cuda))
+        state, losses = (p, opt.init(p)), []
+        for b in batches:
+            state, m = fn(state, _to(b, cuda))
+            losses.append(float(m["loss"]))
+        runs[label] = losses
+    assert runs["graph"] == runs["eager"]
+    for a, b in zip(runs["graph"], runs["graph f32"]):
+        assert abs(a - b) <= 5e-3 * abs(b)
+
+
 # ---------------------------------------------------------------- DTensors
 @pytest.fixture
 def mesh11(cuda):

@@ -71,8 +71,13 @@ def test_model_norm_routes_cpu_tensors_to_the_plain_version(parametric):
 
 
 def test_wrapper_rejects_other_devices():
-    with pytest.raises(ValueError, match="no rmsnorm"):
-        ops.rmsnorm(torch.zeros((2, 8), device="meta"), None)
+    """A device other than the CPU, CUDA and meta (the dry run's shapes)
+    raises: an xpu tensor stands in, as a fake tensor (no xpu here)."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    mode = FakeTensorMode()
+    x = FakeTensor(mode, torch.empty((2, 8), device="meta"), torch.device("xpu"))
+    with mode, pytest.raises(ValueError, match="no rmsnorm"):
+        ops.rmsnorm(x, None)
 
 
 # chip_smoke phase 5's widths and row counts, ragged row counts, and

@@ -88,10 +88,16 @@ def test_state_decays_to_input_term():
 
 
 def test_wrapper_rejects_other_devices():
-    t = torch.zeros((1, 2, 4, 8), device="meta")
-    with pytest.raises(ValueError, match="no ssd_update"):
-        ops.ssd_update(t, t[..., 0], t[:, :, 0, 0], t[0, :, 0, 0],
-                       t[:, :1, 0], t[:, :1, 0])
+    """A device other than the CPU, CUDA and meta (the dry run's shapes)
+    raises: xpu tensors stand in, as fake tensors (no xpu here)."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    mode = FakeTensorMode()
+
+    def xpu(*shape):
+        return FakeTensor(mode, torch.empty(shape, device="meta"), torch.device("xpu"))
+    with mode, pytest.raises(ValueError, match="no ssd_update"):
+        ops.ssd_update(xpu(1, 2, 4, 8), xpu(1, 2, 4), xpu(1, 2), xpu(2),
+                       xpu(1, 1, 8), xpu(1, 1, 8))
 
 
 @pytest.mark.parametrize("warps", [4, 8])
