@@ -77,6 +77,15 @@ Phases, in order; each raises on failure and nothing catches:
     ``ops.ssd_plan``) and the plain version (no single PyTorch call
     computes it), the profiler's device time per call and the time per
     call back to back over 64 (mamba2) or 96 (zamba2) distinct states.
+6c. the dequantisation kernel (``csrc/dequantize.cu``; port-only: the
+    reference dequantises with jnp, ``src/repro/quant/quantize.py:126``)
+    bit-equal to its plain version over int4 and int8 codes, bf16, f16
+    and f32 out, groups 32 and 128, at a qwen2-moe-a2.7b expert stack
+    (60, 2048, 1408) and a qwen2.5-7b w_gate (3584, 18944), and at N = 50
+    (the scalar variant); two calls bit-equal; ptxas' registers and
+    spills; times of the kernel and the plain version (no single
+    PyTorch call computes it) against the bound (codes + scales + output
+    bytes at 3.35 TB/s) at both shapes, int4 and int8 to bf16.
  7. the decode-attention kernel inside the real path: a qwen2.5-7b-width
     model with 2 layers in f32; greedy tokens of ``decode_backend="cuda"``
     and ``"sdpa"`` must be identical over 16 tokens.
@@ -201,7 +210,9 @@ Phases, in order; each raises on failure and nothing catches:
     R_floor against ``floor_cell`` (the active set) and the weight bytes
     ``tree_weight_traffic`` charges, device time per step, prefill wall;
     the same model under ``int4_fused`` (one request; kernel 3 7 x 24
-    times per step); its paged serving (phase 12's 8 sessions through 4
+    times and the dequantisation kernel 3 x 24 times per step; graph and
+    eager p50; two eager steps profiled by kernel kind: 72 dequantisation
+    kernels a step and no uint8 / int8 elementwise kernel); its paged serving (phase 12's 8 sessions through 4
     slots, bf16 KV, K=1: full budgets, one graph, 24 paged kernels per
     device step; p50 per token, tok/s); qwen2-vl-2b (28 layers, bf16
     embeddings with t/h/w positions) and musicgen-large (48 layers,
@@ -249,7 +260,9 @@ Phases, in order; each raises on failure and nothing catches:
     process-global; phase 19's group is gone by then) on four full-width
     cells: qwen2.5-3b ``train_4k`` on ``pod``, qwen2.5-3b ``decode_32k``
     on ``multipod``, llama4-scout-17b-a16e ``decode_32k`` on ``pod`` (the
-    int4_fused weights) and mamba2-2.7b ``long_500k`` on ``pod``, into
+    int4_fused weights), mamba2-2.7b ``long_500k`` on ``pod`` and
+    llama4-scout-17b-a16e ``train_4k`` on ``pod`` (the moe's token
+    reshapes on an FSDP data split; about 110 s of trace), into
     ``build/dryrun/``; each must end ``ok`` (a failed cell's traceback is
     printed); each cell's trace seconds, collective counts by kind, wire
     bytes and argument bytes a rank, FLOPs a rank.  (b) the one-card
@@ -261,25 +274,39 @@ Phases, in order; each raises on failure and nothing catches:
     ratio), and the estimate's optimizer bytes as a time at 3.35 TB/s
     beside 18c's AdamW ms; the rows alone when phases 10 and 18c did not
     run.  Its numbers go on an ``{"analysis": ...}`` line.
-21. the kernels line: one JSON object with every ported kernel's
-    numbers (all five, and kernel 5's backward: no TPU kernel is left to
-    port; ``device_us`` and
+21. the examples (``examples/torch``).  (a) each of ``quickstart.py``,
+    ``serve_stream.py``, ``train_dense.py`` and ``quant_ablation.py`` as
+    a user runs it (on the card, its defaults), in a subprocess: exit 0
+    and ``OK`` last.  (b) ``quant_ablation.ablation`` at qwen2.5-7b full
+    width (28 layers, bf16 random weights drawn on the card), prompt
+    2048, 32 new tokens, one weight path at a time with the counts at 0
+    just before it: the dequantisation kernel 7 x 28 times a step on
+    int8_dequant, int8_fused and int4_dequant, kernel 3 on int4_fused,
+    neither on bf16; per path the charged GB a step
+    (``tree_weight_traffic``), the H100 floor, the graph p50 and the
+    realised rate (charged bytes over p50), which must not pass 3.35
+    TB/s.  Its numbers go on an ``{"examples": ...}`` line.
+22. the kernels line: one JSON object with every ported kernel's
+    numbers (all five, kernel 5's backward and the dequantisation
+    kernel, both port-only: no TPU kernel is left to port; ``device_us`` and
     ``b2b_us`` for kernels 4 and 5, null for the others); ``launches`` sums
     the main paths that run the kernel and ``launches_by_path`` names
     each path's count (the tiered cells of phase 16 included); the int4
     row adds the M=2048 sums (``prefill_*``) and the prefill's launches
     and walls.  ``rmsnorm_bwd`` (the backward, port-only) counts phase
     18c's and 19c's launches; 19b and 19c's DTensor arm are paths of
-    their own in ``launches_by_path``.
-22. last line: ``{"ok": true, "device": {...}}``.
+    their own in ``launches_by_path``.  ``dequantize`` counts phase 17's
+    int4 moe cell and phase 21's three dequantising 7b paths (whose
+    int4_fused path adds to kernel 3's row).
+23. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only kernels
 
-runs phases 1-6 only and prints the kernels line (launches null) without
+runs phases 1-6 (and 5b, 6c) only and prints the kernels line (launches null) without
 the ``ok`` line: the quick call for tuning a kernel.  ``--only families``
 runs phases 1, 9c and 17 only, ``--only train`` phases 1, 5b and 18,
-``--only dist`` phases 1 and 19, ``--only analysis`` phases 1 and 20
-(no kernels line, no ``ok`` line).
+``--only dist`` phases 1 and 19, ``--only analysis`` phases 1 and 20,
+``--only examples`` phases 1 and 21 (no kernels line, no ``ok`` line).
 Every phase prints its name on a line of its own before it starts.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -1173,6 +1200,94 @@ def check_ssd_update(dev, timer):
                        shape="f32 B=1 H=80 P=64 N=128 G=1, in place "
                              "(mamba2-2.7b decode); b2b_us over 64 distinct "
                              "states")
+    return row
+
+
+# ---------------------------------------------------------------- phase 6c
+# (label, leading dims, K, N): a qwen2-moe-a2.7b expert stack and a
+# qwen2.5-7b w_gate, the shapes the int4 moe step and the 7b dequant
+# routes give the kernel
+DEQUANT_SHAPES = (("qwen2-moe-a2.7b w_gate stack", (60,), 2048, 1408),
+                  ("qwen2.5-7b w_gate", (), 3584, 18944))
+DEQUANT_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+
+
+def dequant_case(dev, bits, lead, K, N, group, seed):
+    """Codes over their whole range (int4 nibbles -8..7, int8 -128..127)
+    and positive f32 scales over six decades, on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = K // 2 if bits == 4 else K
+    codes = torch.randint(0, 256, lead + (rows, N), generator=g, device=dev,
+                          dtype=torch.int32)
+    codes = codes.to(torch.uint8) if bits == 4 else (codes - 128).to(torch.int8)
+    exp = torch.randint(-6, 1, lead + (K // group, N), generator=g, device=dev)
+    scales = (torch.rand(lead + (K // group, N), generator=g, device=dev) + 0.5) \
+        * torch.pow(10.0, exp.float())
+    return codes, scales
+
+
+def dequant_bytes(codes, scales, dtype, bits) -> int:
+    out = codes.numel() * (2 if bits == 4 else 1) * torch.finfo(dtype).bits // 8
+    return codes.numel() * codes.element_size() + scales.numel() * 4 + out
+
+
+def check_dequantize(dev, timer):
+    """6c: the dequantisation kernel (port-only: the reference dequantises
+    with jnp) bit-equal to its plain version; its row of the kernels
+    line at the qwen2-moe-a2.7b stack (int4, group 128, bf16)."""
+    from repro_torch.kernels.dequantize import ops, ref
+    log("== phase 6c: dequantisation, kernel vs plain (bit-equal): int4 and int8, "
+        "bf16 / f16 / f32 out, 2-D and 3-D, groups 32 and 128")
+    log_kernel_build("dequantize", "dequantize_kernel")
+    cases = [(bits, dtype, shape, group) for bits in (4, 8) for dtype in DEQUANT_DTYPES
+             for shape in DEQUANT_SHAPES for group in (32, 128)]
+    # the scalar variant: N not a multiple of 16
+    cases += [(bits, torch.bfloat16, ("ragged N", (3,), 256, 50), 32) for bits in (4, 8)]
+    worst = 0.0
+    for i, (bits, dtype, (label, lead, K, N), group) in enumerate(cases):
+        codes, scales = dequant_case(dev, bits, lead, K, N, group, i)
+        got = ops.dequantize(codes, scales, bits, dtype)
+        want = ref.dequantize_ref(codes, scales, bits, dtype)
+        again = ops.dequantize(codes, scales, bits, dtype)
+        torch.cuda.synchronize()
+        view = torch.int32 if dtype == torch.float32 else torch.int16
+        ok = (got.shape == want.shape and torch.equal(got.view(view), want.view(view))
+              and torch.equal(got.view(view), again.view(view)))
+        if got.shape == want.shape:
+            worst = max(worst, (got.float() - want.float()).abs().max().item())
+        log(f"  int{bits} -> {str(dtype)[6:]:8s} {label} {lead + (K, N)} group {group}: "
+            f"bit-equal to the plain version and across two calls: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"dequantize int{bits} {dtype} {label} group {group} "
+                                 "differs from its plain version")
+        del codes, scales, got, want, again
+    log(f"  largest max_abs_err over the {len(cases)} cases: {worst:.3g}")
+    row, times = None, {}
+    for label, lead, K, N in DEQUANT_SHAPES:
+        for bits in (4, 8):
+            codes, scales = dequant_case(dev, bits, lead, K, N, 128, 99)
+            ms = timer(lambda: ops.dequantize(codes, scales, bits, torch.bfloat16))
+            plain_ms = timer(lambda: ref.dequantize_ref(codes, scales, bits, torch.bfloat16))
+            nbytes = dequant_bytes(codes, scales, torch.bfloat16, bits)
+            b_ms, b_by = bound_ms(nbytes, 0, torch.bfloat16)
+            log(f"  times, int{bits} -> bf16, {label} {lead + (K, N)} group 128: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library: no single PyTorch "
+                f"call, bound {b_ms:.6f} ms ({b_by}: {nbytes} bytes, "
+                f"{nbytes / ms / 1e6:.1f} GB/s realised)")
+            times[f"{label} int{bits}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                               bytes=nbytes)
+            if row is None:
+                row = dict(name="dequantize", route="cuda",
+                           source="src/repro_torch/csrc/dequantize.cu",
+                           replaces="src/repro/quant/quantize.py:126 (jnp; no TPU kernel)",
+                           max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None,
+                           shape=f"int4 (60, 1024, 1408) packed codes, group 128 -> "
+                                 f"bf16 (60, 2048, 1408): a qwen2-moe-a2.7b w_gate "
+                                 f"stack")
+            del codes, scales
+    row["times"] = times
     return row
 
 
@@ -2671,8 +2786,11 @@ def family_batch1(dev, name):
 def moe_int4(dev, model, params):
     """qwen2-moe-a2.7b under int4_fused: one request through the engine's
     graph step; kernel 3 launches 7 x n_layers per step (attention and
-    shared experts; the expert stacks are dequantised, as in the
-    reference)."""
+    shared experts) and the dequantisation kernel 3 x n_layers (the
+    expert stacks are multiplied by a bf16 copy, as in the reference);
+    the eager p50; two eager decode steps profiled by kernel kind: 3 x
+    n_layers dequantisation kernels a step and no uint8 / int8
+    elementwise kernel (the eager chain the kernel replaced)."""
     from repro_torch.core.floor import floor_cell
     from repro_torch.core.hardware import GPU_H100
     from repro_torch.quant import tree_weight_traffic
@@ -2690,31 +2808,63 @@ def moe_int4(dev, model, params):
     zero_counts()
     res = engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True)
     launches = launched()
-    counts = {k: launches[k] for k in ("decode_attention", "rmsnorm", "int4_matmul")}
+    counts = {k: launches[k] for k in ("decode_attention", "rmsnorm", "int4_matmul",
+                                       "dequantize")}
     per_step = 7 * cfg.n_layers
+    stacks = 3 * cfg.n_layers
     norms = 2 * cfg.n_layers + 1
     want = dict(decode_attention=cfg.n_layers * (NEW - 1),
-                rmsnorm=norms * NEW, int4_matmul=per_step * NEW)
+                rmsnorm=norms * NEW, int4_matmul=per_step * NEW, dequantize=stacks * NEW)
     log(f"  engine graph step: launches {counts}; want int4_matmul 7 x "
-        f"{cfg.n_layers} x ({NEW - 1} decode steps + the prefill): {want}")
+        f"{cfg.n_layers} and dequantize 3 x {cfg.n_layers} x ({NEW - 1} decode steps "
+        f"+ the prefill): {want}")
     if counts != want:
         raise AssertionError(f"int4 {cfg.name}: launches {counts} differ from {want}")
     if tuple(res.tokens.shape) != (1, NEW):
         raise AssertionError(f"int4 tokens {tuple(res.tokens.shape)}")
     p50 = statistics.median(res.step_times_s) * 1e3
+    tok = res.tokens[:, :1]
+    p50_eager = eager_p50(engine, batch, tok)
     streamed = tree_weight_traffic(engine.params)
     fq = floor_cell(cfg, GPU_H100, PROMPT, weight_dtype_bytes=0.5)
-    log(f"  p50 step {p50:.4f} ms (engine graph step, n={len(res.step_times_s)}); "
-        f"{res.tokens_per_s:.2f} tok/s; weights by tree_weight_traffic "
-        f"{streamed / 1e9:.4f} GB (int4 codes and scales, plus the bf16 copy of "
-        f"every expert stack written and read); int4 floor {fq.t_floor_ms:.4f} ms "
-        f"({fq.weight_bytes / 1e9:.4f} GB active weights), R_floor "
-        f"{fq.t_floor_ms / p50:.4f}")
+    log(f"  p50 step {p50:.4f} ms (engine graph step, n={len(res.step_times_s)}; "
+        f"169.4282 ms before the dequantisation kernel, PR 27); eager p50 "
+        f"{p50_eager:.4f} ms; {res.tokens_per_s:.2f} tok/s; weights by "
+        f"tree_weight_traffic {streamed / 1e9:.4f} GB (int4 codes and scales, plus "
+        f"the bf16 copy of every expert stack written once and read once), "
+        f"{streamed / (p50 * 1e-3) / 1e12:.3f} TB/s realised; int4 floor "
+        f"{fq.t_floor_ms:.4f} ms ({fq.weight_bytes / 1e9:.4f} GB active weights), "
+        f"R_floor {fq.t_floor_ms / p50:.4f}")
+    with torch.inference_mode():
+        cache = engine.new_cache(1, max_len)
+        engine.model.prefill(engine.params, batch, cache)
+        steps = 2
+
+        def two_steps():
+            for _ in range(steps):
+                engine.model.decode_step(engine.params, cache, tok)
+        total, count, top, kinds = top_device_ops(two_steps, n=100000)
+    del cache
+    per = {name: calls / steps for name, calls, _ in top}
+    dq = sum(n for name, n in per.items() if "dequantize_kernel" in name)
+    narrow = {name: n for name, n in per.items()
+              if kernel_kind(name) == "uint8 / int8 elementwise"}
+    log_profile(f"int4 moe eager decode step x {steps}",
+                (total, count, top[:15], kinds))
+    busy = total / steps
+    log(f"  per decode step: {busy:.4f} ms of kernels = {busy / p50:.1%} of the graph "
+        f"p50, {count / steps:.0f} kernels, {dq:.0f} dequantisation kernels (want "
+        f"{stacks}), uint8 / int8 elementwise kernels {narrow or 'none'}")
+    if dq != stacks or narrow:
+        raise AssertionError(f"int4 moe step: {dq} dequantisation kernels a step "
+                             f"(want {stacks}), uint8 / int8 elementwise {narrow}")
     del engine
     torch.cuda.empty_cache()
-    return counts, dict(graph_p50_ms=p50, weight_bytes=streamed,
+    return counts, dict(graph_p50_ms=p50, eager_p50_ms=p50_eager, weight_bytes=streamed,
                         floor_ms=fq.t_floor_ms, r_floor=fq.t_floor_ms / p50,
-                        tok_s=res.tokens_per_s)
+                        tok_s=res.tokens_per_s, device_ms=busy, busy_share=busy / p50,
+                        kernels_per_step=count / steps, dequantize_per_step=dq,
+                        ms_by_kind={k: v / steps for k, v in kinds.items()})
 
 
 def moe_paged(dev, model, params):
@@ -2906,8 +3056,13 @@ def check_train_restart(dev):
     return dict(final_loss=a, restarts=faulty.restarts)
 
 
-KERNEL_KINDS = (("kernel 5", ("rmsnorm",)), ("f32 GEMMs", ("f32f32", "sgemm")),
+KERNEL_KINDS = (("dequantize", ("dequantize_kernel",)), ("kernel 3", ("int4_",)),
+                ("kernel 1", ("decode_attention",)), ("kernel 2", ("paged_attention",)),
+                ("kernel 4", ("ssd_update",)), ("kernel 5", ("rmsnorm",)),
+                ("f32 GEMMs", ("f32f32", "sgemm")),
                 ("bf16 GEMMs", ("gemm", "nvjet", "cutlass")),
+                # int8 is ``signed char`` in a kernel's template arguments
+                ("uint8 / int8 elementwise", ("unsigned char", "signed char")),
                 ("softmax", ("softmax",)), ("reductions", ("reduce",)),
                 ("elementwise and casts", ("elementwise", "copy", "fill")))
 
@@ -2937,7 +3092,7 @@ def top_device_ops(fn, n=15):
         kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
     total = sum(e.self_device_time_total for e in events) / 1e3
     return (total, sum(e.count for e in events),
-            [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in events[:n]],
+            [(e.key, e.count, e.self_device_time_total / 1e3) for e in events[:n]],
             kinds)
 
 
@@ -2946,7 +3101,7 @@ def log_profile(label, prof):
     log(f"  {label}: {total:.2f} ms of kernels, {count} kernels; by kind: "
         + ", ".join(f"{k} {v:.2f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
     for name, calls, ms in top:
-        log(f"    {ms:9.3f} ms {calls:5d}x {name}")
+        log(f"    {ms:9.3f} ms {calls:5d}x {name[:90]}")
 
 
 def event_ms(fn, reps=3) -> float:
@@ -3392,8 +3547,10 @@ def distributed(dev):
 DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "pod"),
                 ("qwen2.5-3b", "decode_32k", "multipod"),
                 ("llama4-scout-17b-a16e", "decode_32k", "pod"),
-                ("mamba2-2.7b", "long_500k", "pod"))
-DRYRUN_TIMEOUT_S = 400
+                ("mamba2-2.7b", "long_500k", "pod"),
+                # the moe token reshapes on an FSDP data split (2 rows a rank)
+                ("llama4-scout-17b-a16e", "train_4k", "pod"))
+DRYRUN_TIMEOUT_S = 600
 MEASURED = {}   # phase 10's and 18c's numbers, read by phase 20b
 
 
@@ -3505,6 +3662,106 @@ def analysis():
     return out
 
 
+# ---------------------------------------------------------------- phase 21
+EXAMPLES = ("quickstart.py", "serve_stream.py", "train_dense.py", "quant_ablation.py")
+EXAMPLE_TIMEOUT_S = 300
+ABLATION_ARCH = "qwen2.5-7b"
+
+
+def run_examples():
+    """21a: each ``examples/torch`` script as a user runs it (on the
+    card, its defaults), in a subprocess: exit 0 and ``OK`` last.
+    Returns each one's wall seconds."""
+    out = {}
+    env = dict(os.environ, PYTHONPATH="")
+    for name in EXAMPLES:
+        log(f"  -- examples/torch/{name}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "examples" / "torch" / name)],
+                              cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=EXAMPLE_TIMEOUT_S)
+        out[name] = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[-14:]:
+            log("    " + line)
+        if proc.returncode or not lines or lines[-1] != "OK":
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"examples/torch/{name} exited {proc.returncode} "
+                                 "without OK")
+        log(f"    ({out[name]:.1f} s)")
+    return out
+
+
+def quant_ablation_full_width(dev):
+    """21b: the example's ``ablation`` at qwen2.5-7b full width (28
+    layers, bf16 random weights drawn on the card), prompt 2048, 32 new
+    tokens, one path at a time with the counts at 0 just before it: the
+    dequantisation kernel 7 x 28 times a step on int8_dequant,
+    int8_fused and int4_dequant, kernel 3 on int4_fused, neither on
+    bf16; each path's charged bytes over its graph p50 must not pass
+    the card's 3.35 TB/s."""
+    import importlib.util
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    spec = importlib.util.spec_from_file_location(
+        "quant_ablation_example", ROOT / "examples" / "torch" / "quant_ablation.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cfg = get_config(ABLATION_ARCH)
+    log(f"  -- quant_ablation.ablation at {ABLATION_ARCH} full width ({cfg.n_layers} "
+        f"layers, bf16 random weights drawn on the card), prompt {PROMPT}, {NEW} new "
+        f"tokens, each path's engine graph step")
+    params = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    prompt = prompt_batch(cfg.vocab_size, dev)
+    per_step = 7 * cfg.n_layers
+    rows, counts = [], {}
+    for path in mod.WEIGHT_PATHS:
+        free_card()
+        zero_counts()
+        row, = mod.ablation(cfg, params, dev, prompt, paths=(path,),
+                            max_len=PROMPT + NEW + 1, n_new=NEW)
+        launches = launched()
+        got = {k: launches[k] for k in ("dequantize", "int4_matmul")}
+        copies = path in ("int8_dequant", "int8_fused", "int4_dequant")
+        want = {"dequantize": per_step * NEW if copies else 0,
+                "int4_matmul": per_step * NEW if path == "int4_fused" else 0}
+        counts[path] = got
+        rate = row["traffic_bytes"] / (row["p50_ms"] * 1e-3)
+        log(f"  {path:13s} charged {row['traffic_bytes'] / 1e9:.4f} GB a step, H100 "
+            f"floor {row['floor_ms']:.4f} ms (nominal {mod.NOMINAL_BYTES[path]} bytes an "
+            f"element), graph p50 {row['p50_ms']:.4f} ms, realised "
+            f"{rate / 1e12:.4f} TB/s of {HBM_BPS / 1e12:.2f}; launches {got} (want {want})")
+        if got != want or tuple(row["tokens"].shape) != (1, NEW):
+            raise AssertionError(f"{path}: launches {got} differ from {want}, or "
+                                 f"tokens {tuple(row['tokens'].shape)}")
+        if rate > HBM_BPS:
+            raise AssertionError(f"{path}: {row['traffic_bytes']} charged bytes in "
+                                 f"{row['p50_ms']} ms read over the card's bound")
+        rows.append(row)
+    del params
+    free_card()
+    log(f"  {mod.summary(rows)}")
+    ratio = mod.vs_bf16(rows)
+    return counts, [dict(path=r["path"], charged_bytes=r["traffic_bytes"],
+                         vs_bf16=ratio[r["path"]], floor_ms=r["floor_ms"],
+                         graph_p50_ms=r["p50_ms"],
+                         realised_tbps=r["traffic_bytes"] / (r["p50_ms"] * 1e-3) / 1e12)
+                    for r in rows]
+
+
+def examples_phase(dev):
+    """Phase 21; returns the ablation's launches by path and the numbers."""
+    free_card()
+    log("== phase 21: the examples (examples/torch) on the card, then the quant "
+        f"ablation at {ABLATION_ARCH} full width over every weight path")
+    t_phase = time.perf_counter()
+    out = {"scripts_s": run_examples()}
+    counts, out["ablation"] = quant_ablation_full_width(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 21 took {out['seconds']:.1f} s")
+    return counts, out
+
+
 # ---------------------------------------------------------------- main
 PENDING = []    # TPU kernels still to port: none
 
@@ -3523,7 +3780,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=["kernels", "families", "train", "dist",
-                                       "analysis"],
+                                       "analysis", "examples"],
                     help="kernels: phases 1-6 and the kernels line (launches "
                          "null), no main path and no ok line; families: "
                          "phases 1, 9c and 17 (the moe, vlm and audio "
@@ -3533,7 +3790,9 @@ def main(argv=None) -> int:
                          "multi-device runtime), no kernels line and no ok "
                          "line; analysis: phases 1 and 20 (the dry run and "
                          "the one-card roofline), no kernels line and no ok "
-                         "line")
+                         "line; examples: phases 1 and 21 (the examples and "
+                         "the full-width quant ablation), no kernels line and "
+                         "no ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3542,6 +3801,10 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     smi, dev = setup()
+    if args.only == "examples":
+        log(json.dumps({"examples": examples_phase(dev)[1]}))
+        log(smi.splitlines()[0])
+        return 0
     if args.only == "analysis":
         log(json.dumps({"analysis": analysis()}))
         log(smi.splitlines()[0])
@@ -3568,7 +3831,7 @@ def main(argv=None) -> int:
     rows = [check_decode_attention(dev, timer), check_int4_matmul(dev, timer)]
     rows += check_paged_decode_attention(dev, timer)
     rows += [check_rmsnorm(dev, timer), check_ssd_update(dev, timer),
-             check_rmsnorm_bwd(dev, timer)]
+             check_rmsnorm_bwd(dev, timer), check_dequantize(dev, timer)]
     for row in rows:     # device_us and b2b_us: measured for kernels 4 and 5
         row.setdefault("device_us", None)
         row.setdefault("b2b_us", None)
@@ -3598,6 +3861,7 @@ def main(argv=None) -> int:
     tc, train = training(dev)
     dc, dist_out = distributed(dev)
     analysis_out = analysis()
+    ec, examples_out = examples_phase(dev)
     dense, int4 = "qwen2.5-7b batch-1 bf16", "qwen2.5-7b batch-1 int4"
     paged = ("qwen2.5-7b paged bf16 KV", "qwen2.5-7b paged int8 KV")
     tiered = ("qwen2.5-7b tiered paged bf16 KV", "qwen2.5-7b tiered paged int8 KV")
@@ -3609,12 +3873,14 @@ def main(argv=None) -> int:
     trained = "qwen2.5-3b training bf16 (eager and captured steps)"
     d_decode = "qwen2.5-7b-width decode on DTensors (2 layers, sequence-split cache)"
     d_train = "qwen2.5-3b training bf16 on DTensors (1x1 mesh, uncaptured)"
+    ablated = {p: f"qwen2.5-7b batch-1 {p} (quant ablation)" for p in ec}
     by_path = [
         {dense: da_launches, zamba: ssm[1]["decode_attention"],
          moe: fc["moe"]["decode_attention"], moe_q: fc["moe_int4"]["decode_attention"],
          vl: fc["vlm"]["decode_attention"], audio: fc["audio"]["decode_attention"],
          d_decode: dc["decode"]["decode_attention"]},
-        {int4: i4_launches, moe_q: fc["moe_int4"]["int4_matmul"]},
+        {int4: i4_launches, moe_q: fc["moe_int4"]["int4_matmul"],
+         ablated["int4_fused"]: ec["int4_fused"]["int4_matmul"]},
         {paged[0]: paged_launches[0], tiered[0]: t_bf16[0],
          moe_p: fc["moe_paged"]["paged_decode_attention"]},
         {paged[1]: paged_launches[1], tiered[1]: t_int8[0]},
@@ -3626,7 +3892,10 @@ def main(argv=None) -> int:
          audio: fc["audio"]["rmsnorm"], trained: tc["rmsnorm"],
          d_decode: dc["decode"]["rmsnorm"], d_train: dc["train"]["rmsnorm"]},
         {mamba: ssm[0]["ssd_update"], zamba: ssm[1]["ssd_update"]},
-        {trained: tc["rmsnorm_bwd"], d_train: dc["train"]["rmsnorm_bwd"]}]
+        {trained: tc["rmsnorm_bwd"], d_train: dc["train"]["rmsnorm_bwd"]},
+        {moe_q: fc["moe_int4"]["dequantize"],
+         **{ablated[p]: ec[p]["dequantize"]
+            for p in ("int8_dequant", "int8_fused", "int4_dequant")}}]
     for row, counts in zip(rows, by_path):
         row["launches"] = sum(counts.values())
         row["launches_by_path"] = counts
@@ -3638,6 +3907,7 @@ def main(argv=None) -> int:
     log(json.dumps({"training": train}))
     log(json.dumps({"distributed": dist_out}))
     log(json.dumps({"analysis": analysis_out}))
+    log(json.dumps({"examples": examples_out}))
     log(smi.splitlines()[0])
     print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,10 @@ def to_tensor(a, device) -> torch.Tensor:
 
 
 def _is_quantized(x) -> bool:
-    return all(hasattr(x, a) for a in ("data", "scales", "bits", "path"))
+    # an array is never one (and numpy's ``.data`` buffer raises for a
+    # bf16 array, whose dtype the buffer protocol does not know)
+    return not isinstance(x, np.ndarray) and all(
+        hasattr(x, a) for a in ("data", "scales", "bits", "path"))
 
 
 def _convert(node, device, layer=None):

@@ -34,7 +34,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
 SOURCES = ("decode_attention", "int4_matmul", "paged_decode_attention",
-           "rmsnorm", "ssd_update")
+           "rmsnorm", "ssd_update", "dequantize")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

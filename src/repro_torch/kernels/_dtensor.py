@@ -27,6 +27,11 @@ Gradients flow through ``to_local`` / ``from_local``: an input
 replicated along a mesh dim on which the work is split gets a
 ``Partial()`` gradient there, the sum of the ranks' parts.  A plain
 tensor among DTensor inputs counts as replicated.
+
+The same local-shard treatment serves ops whose DTensor rules refuse a
+layout or would gather a tensor whole: ``flatten_leading`` and
+``unflatten_leading`` (an (A, B, D) <-> (A*B, D) reshape with an uneven
+or inner split) and ``take_rows`` (a row gather from a split buffer).
 """
 from __future__ import annotations
 
@@ -94,6 +99,151 @@ def split_dim(t, dim: int, outer: int):
         return t
     return t.redistribute(t.device_mesh, [Replicate() if hit else p
                                           for p, hit in zip(t.placements, on)])
+
+
+def _flat_placements(x) -> list:
+    """The placements of a DTensor x (A, B, D) that its flatten to
+    (A*B, D) runs on: A split evenly and D split stay; a split of B, an
+    uneven split of A and a Partial become Replicate.  Then each rank's
+    rows are whole rows of A, in the global order."""
+    from torch.distributed.tensor import Replicate, Shard
+    sizes = x.device_mesh.mesh.shape
+    k = 1
+    for m, pl in enumerate(x.placements):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            k *= sizes[m]
+    keep = [isinstance(pl, Shard) and (pl.dim == 2 or (pl.dim == 0
+                                                      and x.shape[0] % k == 0))
+            for pl in x.placements]
+    return [pl if kept else Replicate() for pl, kept in zip(x.placements, keep)]
+
+
+def _flat_of(placements) -> list:
+    """(A, B, D) placements as those of its (A*B, D) flatten."""
+    from torch.distributed.tensor import Shard
+    return [Shard(0 if p.dim == 0 else 1) if isinstance(p, Shard) else p
+            for p in placements]
+
+
+def flatten_leading(x):
+    """x (A, B, D) -> (A*B, D).  A DTensor is redistributed explicitly to
+    ``_flat_placements``, flattened on its local shards and wrapped again
+    with A's split on the flat dim: DTensor's own view rules refuse an
+    uneven split or a split of B, and gave the flatten's backward shards
+    of the wrong size (``from_local``'s backward redistributes the
+    gradient to these placements first)."""
+    A, B, D = x.shape
+    if not is_dtensor(x):
+        return x.reshape(A * B, D)
+    import torch
+    from torch.distributed.tensor import DTensor
+    want = _flat_placements(x)
+    if list(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    local = x.to_local()
+    return DTensor.from_local(local.reshape(-1, local.shape[-1]), x.device_mesh,
+                              _flat_of(want), run_check=False,
+                              shape=torch.Size((A * B, D)), stride=(D, 1))
+
+
+def unflatten_leading(y, like):
+    """y (A*B, D) -> (A, B, D) of ``like``'s shape.  A DTensor is first
+    redistributed explicitly to the layout ``flatten_leading`` gave
+    ``like``'s rows, then unflattened on its local shards."""
+    A, B, D = like.shape
+    if not is_dtensor(y):
+        return y.reshape(A, B, D)
+    import torch
+    from torch.distributed.tensor import DTensor
+    want = _flat_placements(like)
+    if list(y.placements) != _flat_of(want):
+        y = y.redistribute(y.device_mesh, _flat_of(want))
+    local = y.to_local()
+    return DTensor.from_local(local.reshape(-1, B, local.shape[-1]), y.device_mesh,
+                              want, run_check=False, shape=torch.Size((A, B, D)),
+                              stride=(B * D, D, 1))
+
+
+def take_rows(buf, idx):
+    """Rows ``idx`` (R,) of ``buf`` (..., D) with its leading dims
+    flattened: ``buf.reshape(-1, D).index_select(0, idx)``.
+
+    On DTensors each rank takes, from its own block of ``buf``, the rows
+    that block holds and zeros for the others.  A mesh dim that splits
+    idx gathers buf there, and the result is split as idx is.  A split of
+    buf's leading dims on a mesh dim of n ranks that does not split idx
+    stays where that moves fewer rows: the result is then ``Partial()``
+    (a sum over the ranks) there, which an all-reduce of 2 (n-1)/n times
+    the result's rows settles, against (n-1) times the rows each rank
+    holds for the gather.  A split of D stays, and a Partial buf stays
+    Partial."""
+    if not any_dtensor(buf, idx):
+        return buf.reshape(-1, buf.shape[-1]).index_select(0, idx)
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    mesh = (buf if is_dtensor(buf) else idx).device_mesh
+    sizes = mesh.mesh.shape
+    rep = [Replicate()] * mesh.ndim
+    if not is_dtensor(buf):
+        buf = DTensor.from_local(buf, mesh, rep, run_check=False)
+    if not is_dtensor(idx):
+        idx = DTensor.from_local(idx, mesh, rep, run_check=False)
+    lead = buf.dim() - 1
+    want_idx = [pi if isinstance(pi, Shard) else Replicate() for pi in idx.placements]
+    want_buf = [Replicate() if isinstance(pi, Shard) else pb
+                for pb, pi in zip(buf.placements, want_idx)]
+
+    def rows_held(t_shape, placements, dims) -> int:
+        # the most rows of dims any rank holds (the same on every rank)
+        n = 1
+        for d in dims:
+            k = 1
+            for m, pl in enumerate(placements):
+                if isinstance(pl, Shard) and pl.dim == d:
+                    k *= sizes[m]
+            n *= -(-t_shape[d] // k)
+        return n
+    out_rows = rows_held(idx.shape, want_idx, (0,))
+    for m, pb in enumerate(want_buf):
+        if isinstance(pb, Shard) and pb.dim < lead and \
+                2 * out_rows >= sizes[m] * rows_held(buf.shape, want_buf, range(lead)):
+            want_buf[m] = Replicate()
+    out, grad = [], []
+    for pb, pi in zip(want_buf, want_idx):
+        out.append(Shard(0) if isinstance(pi, Shard) else
+                   (Partial() if pb.dim < lead else Shard(1)) if isinstance(pb, Shard)
+                   else pb)
+        # buf's gradient: a sum of the ranks' parts where the rows are
+        # split; the whole for each part of a Partial buf
+        grad.append(Partial() if isinstance(pi, Shard) else
+                    Replicate() if isinstance(pb, Partial) else pb)
+    if list(buf.placements) != want_buf:
+        buf = buf.redistribute(mesh, want_buf)
+    if list(idx.placements) != want_idx:
+        idx = idx.redistribute(mesh, want_idx)
+    shape, offset = compute_local_shape_and_global_offset(buf.shape, mesh, want_buf)
+    local = buf.to_local(grad_placements=grad)
+    i = idx.to_local()
+    # each row's coordinates in buf's leading dims, then its index in this
+    # rank's block (valid where every coordinate falls inside the block)
+    coords, rem = [], i
+    for d in reversed(range(lead)):
+        coords.append(rem % buf.shape[d])
+        rem = rem // buf.shape[d]
+    local_i, inside = torch.zeros_like(i), torch.ones_like(i, dtype=torch.bool)
+    for d, c in enumerate(reversed(coords)):
+        c = c - offset[d]
+        inside = inside & (c >= 0) & (c < shape[d])
+        local_i = local_i * shape[d] + c
+    # a zero row after the block for the rows it does not hold (an uneven
+    # split may leave a rank an empty block)
+    flat = local.reshape(-1, local.shape[-1])
+    flat = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])
+    rows = flat.index_select(0, torch.where(inside, local_i, flat.shape[0] - 1))
+    R, D = idx.shape[0], buf.shape[-1]
+    return DTensor.from_local(rows, mesh, out, run_check=False,
+                              shape=torch.Size((R, D)), stride=(D, 1))
 
 
 def local_call(fn, args: Sequence[Tuple[Any, str]], outs: Sequence[str], *,

@@ -511,12 +511,36 @@ def paged_view(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
     return pages.reshape(B, max_blocks * pool.shape[1], *pool.shape[2:])
 
 
+def paged_write_rows(block_table: torch.Tensor, pos: torch.Tensor, page_size: int,
+                     active: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where each lane's new K/V row goes in a paged decode step, the
+    same for every layer: (page, offset, writer), (B,) each.  The row is
+    ``block_table[b, pos[b] // page_size]`` at ``pos[b] % page_size``;
+    ``active`` (B,) bool redirects inactive lanes to the garbage page 0.
+    Lanes that land on one row (inactive and free lanes, on page 0) all
+    write the values of the last of them, lane ``writer[b]``: the row
+    then holds what a serial write in lane order leaves (the CPU's
+    scatter), whatever order the card's scatter takes.  Free lanes read
+    page 0, and a MoE routes them beside live lanes, so that row reaches
+    live tokens through the experts' capacity."""
+    blk = (pos // page_size).clamp(max=block_table.shape[1] - 1)
+    page = block_table.gather(1, blk[:, None].long())[:, 0]
+    if active is not None:
+        page = torch.where(active, page, 0)   # 0 = reserved garbage page
+    page, off = page.long(), (pos % page_size).long()
+    row = page * page_size + off
+    lanes = torch.arange(row.shape[0], device=row.device)
+    writer = torch.where(row[:, None] == row[None, :], lanes, -1).amax(dim=1)
+    return page, off, writer
+
+
 def attention_decode_paged(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_table: torch.Tensor,
                            pos: torch.Tensor, mask: torch.Tensor,
                            angles: torch.Tensor, cfg: ArchConfig,
                            apply_rope_fn, backend: str = "sdpa",
-                           active=None, k_scale_pool=None,
+                           rows=None, k_scale_pool=None,
                            v_scale_pool=None) -> torch.Tensor:
     """One-token decode through a paged KV cache.
 
@@ -524,8 +548,10 @@ def attention_decode_paged(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
     (B, max_blocks); pos (B,) absolute per-slot positions.  The new K/V
     row is written in place into the slot's current page
     (``block_table[b, pos[b] // page_size]`` at offset
-    ``pos[b] % page_size``); ``active`` (B,) bool redirects inactive
-    lanes' writes to the garbage page 0.  Lanes whose block-table row
+    ``pos[b] % page_size``); ``rows`` is ``paged_write_rows``' (page,
+    offset, writer) for the step (computed here, all lanes active, when
+    None), which redirects inactive lanes' writes to the garbage page 0.
+    Lanes whose block-table row
     points at page 0 (free or mid-prefill slots) write there and read
     finite junk that the scheduler discards.  k_scale_pool/v_scale_pool
     (n_pages, page_size, Hkv) select the int8 pool: the row is quantised
@@ -537,21 +563,17 @@ def attention_decode_paged(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
     q, k_new, v_new = _project_qkv(p, x, cfg)
     q = apply_rope_fn(q, angles)
     k_new = apply_rope_fn(k_new, angles)
-    page_size = k_pool.shape[1]
-    blk = (pos // page_size).clamp(max=block_table.shape[1] - 1)
-    page = block_table.gather(1, blk[:, None].long())[:, 0]
-    if active is not None:
-        page = torch.where(active, page, 0)   # 0 = reserved garbage page
-    page, off = page.long(), (pos % page_size).long()
+    page, off, writer = (rows if rows is not None else
+                         paged_write_rows(block_table, pos, k_pool.shape[1]))
     quantized = k_scale_pool is not None
     if quantized:
         from repro_torch.quant import kv as kvq
         k_new, ks = kvq.quantize_kv_write(k_new)
         v_new, vs = kvq.quantize_kv_write(v_new)
-        k_scale_pool[page, off] = ks[:, 0]
-        v_scale_pool[page, off] = vs[:, 0]
-    k_pool[page, off] = k_new[:, 0].to(k_pool.dtype)
-    v_pool[page, off] = v_new[:, 0].to(v_pool.dtype)
+        k_scale_pool[page, off] = ks[:, 0].index_select(0, writer)
+        v_scale_pool[page, off] = vs[:, 0].index_select(0, writer)
+    k_pool[page, off] = k_new[:, 0].index_select(0, writer).to(k_pool.dtype)
+    v_pool[page, off] = v_new[:, 0].index_select(0, writer).to(v_pool.dtype)
     paged = (k_pool, v_pool, block_table, pos + 1)
     if quantized:
         paged = paged + (k_scale_pool, v_scale_pool)

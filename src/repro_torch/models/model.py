@@ -607,13 +607,13 @@ class Model:
         return x + y
 
     def _attn_block_decode_paged(self, bp, x, k_pool, v_pool, block_table,
-                                 pos, mask, angles, active=None,
+                                 pos, mask, angles, rows,
                                  k_scale_pool=None, v_scale_pool=None):
         cfg = self.cfg
         a_out = attn.attention_decode_paged(
             bp["attn"], apply_norm(x, bp["norm1"]), k_pool, v_pool,
             block_table, pos, mask, angles, cfg, apply_rope,
-            backend=self.decode_backend, active=active,
+            backend=self.decode_backend, rows=rows,
             k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
         x = x + a_out
         return x + self._ffn(bp, apply_norm(x, bp["norm2"]))[0]
@@ -660,6 +660,8 @@ class Model:
         if paged:
             kv_len = cache["block_table"].shape[1] * cache["k"].shape[2]
             ring, write_pos = False, pos
+            rows = attn.paged_write_rows(cache["block_table"], pos,
+                                         cache["k"].shape[2], active)
         else:
             kv_len = cache["k"].shape[2]
             ring = bool(cfg.sliding_window) and kv_len <= cfg.sliding_window
@@ -683,7 +685,7 @@ class Model:
             if paged:
                 x = self._attn_block_decode_paged(
                     bp, x, cache["k"][i], cache["v"][i], cache["block_table"],
-                    pos, mask, angles, active, *scales)
+                    pos, mask, angles, rows, *scales)
             else:
                 x = self._attn_block_decode(bp, x, cache["k"][i], cache["v"][i],
                                             write_pos, mask, angles, *scales,

@@ -116,7 +116,7 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     B, S, D = x.shape
     T = B * S
     E, k = cfg.n_experts, max(cfg.top_k, 1)
-    xt = x.reshape(T, D)
+    xt = _dt.flatten_leading(x)
 
     idx, gates, probs = _route(p, xt, cfg)                    # (T,k)
     aux = load_balance_loss(probs, idx, E) if with_aux else None
@@ -152,7 +152,7 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     out_buf = hints.constrain(out_buf, ("tp" if ep else None, "dp", None))
 
     # combine: gather back per assignment, weight by gate, sum over k
-    gathered = out_buf.reshape(E * capacity, D).index_select(0, slot)
+    gathered = _dt.take_rows(out_buf, slot)
     gathered = torch.where(keep[:, None], gathered, 0)
     weighted = gathered * gates.reshape(-1)[:, None].to(gathered.dtype)
     weighted = weighted.to(x.dtype).view(T, k, D)
@@ -165,4 +165,4 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
     if cfg.shared_d_ff:
         y = y + mlp_forward(p["shared"], xt, cfg.mlp_gated)
-    return y.reshape(B, S, D), aux
+    return _dt.unflatten_leading(y, x), aux

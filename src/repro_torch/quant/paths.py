@@ -11,6 +11,10 @@ their ``path``:
             bf16 dequantisation, as the reference does off its TPU, and
             are charged its bytes (``QuantizedTensor.int4_kernel``).
 
+Every dequantisation is one pass of ``kernels/dequantize`` on the card
+(codes and scales read once, the copy written once), so each of these
+routes moves what ``QuantizedTensor.nbytes_streamed`` charges.
+
 ``expert_einsum`` is the same entry point for the MoE's stacked (E, K, N)
 expert weights.
 """

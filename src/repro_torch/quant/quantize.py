@@ -12,8 +12,9 @@ multiplies by it:
   dequant — materialise the bf16 weight, then matmul (traffic >= W_bf16)
   fused   — 2-D int4 weights: the int4 kernel reads the packed codes and
             scales and never writes a bf16 weight (traffic ~= W/4 +
-            scales); other fused weights (int8) are multiplied by a bf16
-            dequantisation, which eager torch writes and reads back, and
+            scales); other fused weights (int8, and the moe's 3-D int4
+            stacks) are multiplied by a bf16 dequantisation, written once
+            by the dequantisation kernel and read once by the GEMM, and
             are charged as dequant (the reference charges them as fused,
             counting on XLA to fuse the cast into the matmul)
 """
@@ -24,6 +25,9 @@ import math
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.dequantize import ops as dequantize_ops
+from repro_torch.kernels.dequantize.ref import unpack_int4  # noqa: F401
 
 DEFAULT_GROUP = 128
 
@@ -76,7 +80,8 @@ class QuantizedTensor:
         s = self.scales.numel() * self.scales.element_size()
         if self.int4_kernel:
             return d + s
-        # write + read back the materialised bf16 copy
+        # codes and scales read once by the dequantisation kernel, which
+        # writes the bf16 copy once; the GEMM reads the copy once
         return d + s + 2 * math.prod(self.shape) * 2
 
 
@@ -104,19 +109,8 @@ def quantize(w: torch.Tensor, bits: int, group: int = DEFAULT_GROUP,
     return QuantizedTensor((lo | (hi << 4)).contiguous(), scales, 4, path)
 
 
-def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """uint8 (..., K//2, N) -> int8 (..., K, N) in [-8, 7]."""
-    lo = (packed & 0xF).to(torch.int8)
-    hi = ((packed >> 4) & 0xF).to(torch.int8)
-    lo = torch.where(lo >= 8, lo - 16, lo)
-    hi = torch.where(hi >= 8, hi - 16, hi)
-    out = torch.stack([lo, hi], dim=-2)           # (..., K//2, 2, N)
-    return out.reshape(*packed.shape[:-2], 2 * packed.shape[-2], packed.shape[-1])
-
-
 def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """codes * repeat(scales) in the target dtype (materialises the
-    weight: this is the dequant path's traffic)."""
-    q = unpack_int4(qt.data) if qt.bits == 4 else qt.data
-    s = torch.repeat_interleave(qt.scales.to(dtype), qt.group, dim=-2)
-    return q.to(dtype) * s
+    """codes * repeat(scales) in the target dtype, materialised in one
+    pass (the dequant path's traffic): ``kernels/dequantize`` launches
+    its kernel for CUDA codes and takes its plain version for CPU ones."""
+    return dequantize_ops.dequantize(qt.data, qt.scales, qt.bits, dtype)

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.dequantize import ops as dq_ops
+from repro_torch.kernels.dequantize.ref import dequantize_ref
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.int4_matmul import ops as i4_ops
 from repro_torch.kernels.int4_matmul.ref import int4_matmul_ref
@@ -579,6 +581,39 @@ def test_moe_scheduler_graph_replays_equal_plain_calls(cuda, paged, K):
             free_below_live = True
     assert free_below_live
 
+
+
+def test_paged_moe_step_repeats_bit_equal(cuda):
+    """A 2-layer qwen2-moe-a2.7b at full width: one paged decode step,
+    called 12 times from copies of one cache, gives the same logits bits
+    on every lane, with two inactive lanes scattered to one row of the
+    garbage page 0 and a free lane reading that page (its junk routes
+    through the experts beside the live lanes).  Before the last-writer
+    rule the card's scatter picked a winner by race."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("qwen2-moe-a2.7b").replace(n_layers=2)
+    model = Model(cfg, decode_backend="cuda", device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    cache = model.init_cache(4, 64, paged=True, page_size=16)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for key in ("k", "v"):
+        cache[key].copy_(torch.randn(cache[key].shape, generator=g, device=cuda))
+    cache["block_table"].zero_()
+    cache["block_table"][0, :3] = torch.tensor([1, 2, 3])
+    cache["block_table"][1, :3] = torch.tensor([5, 6, 7])
+    cache["block_table"][3, :3] = torch.tensor([9, 10, 11])
+    cache["pos"].copy_(torch.tensor([20, 37, 4, 20]))
+    tokens = torch.tensor([[11], [22], [33], [44]], dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, True, False, False], device=cuda)
+    runs = []
+    for _ in range(12):
+        c = {k: v.clone() for k, v in cache.items()}
+        logits, c = model.decode_step(params, c, tokens, active=active)
+        runs.append((logits.view(torch.int16).clone(), c["k"][:, 0].clone()))
+    for logits, page0 in runs[1:]:
+        assert torch.equal(logits, runs[0][0])
+        assert torch.equal(page0.view(torch.int16), runs[0][1].view(torch.int16))
 
 def test_capture_collects_a_cycle_that_owns_a_graph(cuda):
     """A reference cycle that owns a captured CUDA graph (as a scheduler
@@ -1300,6 +1335,134 @@ def test_bf16_train_step_graph_losses_on_tensor_cores(cuda, monkeypatch):
         assert abs(a - b) <= 5e-3 * abs(b)
 
 
+# ------------------------------------------------- the dequantisation kernel
+def _dq_case(dev, bits, shape, group, seed):
+    """Codes over their whole range and positive f32 scales over six
+    decades: shape is the output's (..., K, N)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    *lead, K, N = shape
+    rows = K // 2 if bits == 4 else K
+    codes = torch.randint(0, 256, (*lead, rows, N), generator=g, device=dev,
+                          dtype=torch.int32)
+    codes = codes.to(torch.uint8) if bits == 4 else (codes - 128).to(torch.int8)
+    exp = torch.randint(-6, 1, (*lead, K // group, N), generator=g, device=dev)
+    scales = (torch.rand((*lead, K // group, N), generator=g, device=dev) + 0.5) \
+        * torch.pow(10.0, exp.float())
+    return codes, scales
+
+
+@pytest.mark.parametrize("group", [32, 128])
+@pytest.mark.parametrize("shape", [(60, 2048, 1408), (3584, 18944), (3, 256, 50),
+                                   (2, 64, 16)],
+                         ids=["moe-stack", "7b-w_gate", "ragged-N", "small"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=["bf16", "f16", "f32"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_dequantize_bit_equal(cuda, bits, dtype, shape, group):
+    """The kernel bit-equal to its plain version (vector and, at N = 50,
+    scalar variants), one launch a call, two calls bit-equal."""
+    if shape[-2] % group:
+        pytest.skip("K is not a multiple of the group")
+    codes, scales = _dq_case(cuda, bits, shape, group, sum(shape) + bits)
+    before = dq_ops.launches
+    got = dq_ops.dequantize(codes, scales, bits, dtype)
+    again = dq_ops.dequantize(codes, scales, bits, dtype)
+    torch.cuda.synchronize()
+    assert dq_ops.launches == before + 2
+    want = dequantize_ref(codes, scales, bits, dtype)
+    view = torch.int32 if dtype == torch.float32 else torch.int16
+    assert got.shape == want.shape == torch.Size(shape) and got.dtype == dtype
+    assert torch.equal(got.view(view), want.view(view))
+    assert torch.equal(again.view(view), got.view(view))
+
+
+def test_dequantize_refuses(cuda):
+    codes, scales = _dq_case(cuda, 4, (256, 64), 32, 0)
+    with pytest.raises(TypeError, match="uint8"):
+        dq_ops.dequantize(codes.to(torch.int8), scales, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        dq_ops.dequantize(torch.cat([codes, codes], 1)[:, :64], scales, 4)
+    with pytest.raises(ValueError, match="one device"):
+        dq_ops.dequantize(codes, scales.cpu(), 4)
+
+
+BLAS = ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitk")
+ROUTES = ("expert_einsum int4 stack", "matmul int8_fused", "matmul int8_dequant",
+          "matmul int4_dequant")
+
+# Each route is profiled in a process of its own: run after this file's
+# earlier tests (graph captures among them), torch.profiler saw no
+# kernel, or the GEMM alone, where a fresh process sees both.
+ROUTE_KERNELS = r"""
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.dequantize.ref import dequantize_ref
+from repro_torch.quant import expert_einsum, matmul, quantize
+dev = torch.device("cuda", 0)
+out = {}
+for route in sys.argv[1:]:
+    g = torch.Generator(device=dev).manual_seed(3)
+    if route.startswith("expert_einsum"):
+        w = quantize(torch.randn((60, 2048, 1408), generator=g, device=dev) * 0.02, 4)
+        x = torch.randn((60, 4, 2048), generator=g, device=dev).to(torch.bfloat16)
+        fn = lambda: expert_einsum("ecd,edf->ecf", x, w)
+        plain = torch.einsum("ecd,edf->ecf", x, dequantize_ref(w.data, w.scales, 4))
+    else:
+        path = route.split()[1]
+        bits, mode = int(path[3]), path.split("_")[1]
+        w = quantize(torch.randn((3584, 18944), generator=g, device=dev) * 0.02, bits,
+                     path=mode)
+        x = torch.randn((1, 3584), generator=g, device=dev).to(torch.bfloat16)
+        fn = lambda: matmul(x, w)
+        plain = x @ dequantize_ref(w.data, w.scales, bits)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # kernels only: a memset (of cuBLAS's workspace) is no kernel
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+               and not e.key.startswith("Memset")}
+    out[route] = {"kernels": kernels, "equal": bool(torch.equal(fn(), plain))}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def route_kernels():
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels run only on the card")
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", ROUTE_KERNELS, *ROUTES], cwd=root,
+                          env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_dequantizing_routes_launch_one_pass_and_one_gemm(route_kernels, route):
+    """Each route that multiplies by a dequantised copy: under the
+    profiler, one dequantisation kernel and one GEMM, no elementwise
+    pass (bf16 x at qwen2-moe-a2.7b's expert and qwen2.5-7b's w_gate
+    shapes); the product equals the GEMM on the plain version's copy."""
+    kernels = route_kernels[route]["kernels"]
+    dq = {k: n for k, n in kernels.items() if "dequantize_kernel" in k}
+    rest = {k: n for k, n in kernels.items() if k not in dq}
+    assert list(dq.values()) == [1], kernels
+    # the rest is the library's product: one GEMM (with its split-K
+    # reduction, where cuBLAS picks one), no elementwise pass
+    assert all(any(t in k.lower() for t in BLAS) for k in rest), kernels
+    assert sum(n for k, n in rest.items() if "reduce" not in k.lower()) == 1, kernels
+    assert route_kernels[route]["equal"]
+
+
 # ---------------------------------------------------------------- DTensors
 @pytest.fixture
 def mesh11(cuda):
@@ -1470,3 +1633,4 @@ def test_train_distributed_torchrun(cuda, tmp_path):
         lines.append(out.stdout.strip().splitlines())
     assert any("uncaptured" in line for line in lines[0])
     assert lines[0][-1] == lines[1][-1]
+

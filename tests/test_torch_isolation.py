@@ -1,5 +1,6 @@
 """The port stands alone: no import of jax, of the JAX package or of
-ml_dtypes, entry points that run on CUDA unless the CPU is asked for,
+ml_dtypes (in the package, chip_smoke, the probes and the examples under
+``examples/torch/``), entry points that run on CUDA unless the CPU is asked for,
 and a CPU smoke of the serve CLI."""
 import ast
 import os
@@ -29,8 +30,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         ROOT / "scripts" / "paged_attention_probe.py",
         ROOT / "scripts" / "decode_attention_probe.py",
         ROOT / "scripts" / "ssd_rmsnorm_probe.py",
-        ROOT / "scripts" / "dispatch_ab_probe.py"]
+        ROOT / "scripts" / "dispatch_ab_probe.py",
+        ROOT / "scripts" / "moe_int4_probe.py",
+        ROOT / "scripts" / "dequantize_probe.py",
+        ROOT / "scripts" / "moe_determinism_probe.py"] + sorted(
+            (ROOT / "examples" / "torch").glob("*.py"))
     assert len(files) > 20
+    assert {f.name for f in files if f.parent.name == "torch"} == {
+        "quickstart.py", "serve_stream.py", "train_dense.py", "quant_ablation.py"}
     names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {"serving/faults.py", "serving/trace.py", "serving/memory/policy.py",
             "serving/memory/tiers.py", "models/moe.py", "launch/train.py",
@@ -38,7 +45,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "training/fault_tolerance.py", "training/optimizer.py",
             "training/train_loop.py", "launch/dryrun.py", "analysis/analytic.py",
             "analysis/roofline.py", "analysis/collectives.py",
-            "analysis/links.py"} <= names
+            "analysis/links.py", "kernels/dequantize/ops.py",
+            "kernels/dequantize/ref.py"} <= names
     # ml_dtypes too: the machine with the card does not have it
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]

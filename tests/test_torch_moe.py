@@ -230,6 +230,25 @@ def test_greedy_streams_match_jax(name):
     np.testing.assert_array_equal(f.tokens.numpy(), fused)
 
 
+
+def test_paged_write_rows_last_lane_wins():
+    """A paged decode step's K/V rows: inactive lanes go to the garbage
+    page 0, and lanes that land on one row (here two inactive lanes and
+    an active free lane, all at offset 4 of page 0) all write the last
+    such lane's values, so the row holds a serial write's result (the
+    reference's, which free lanes read and route through the experts)
+    whatever order the card's scatter takes."""
+    from repro_torch.models.attention import paged_write_rows
+    block_table = torch.tensor([[1, 2], [0, 0], [3, 4], [0, 0]], dtype=torch.int32)
+    pos = torch.tensor([5, 4, 20, 4], dtype=torch.int32)
+    active = torch.tensor([True, False, False, True])
+    page, off, writer = paged_write_rows(block_table, pos, 16, active)
+    assert page.tolist() == [1, 0, 0, 0]
+    assert off.tolist() == [5, 4, 4, 4]
+    assert writer.tolist() == [0, 3, 3, 3]
+    page, off, writer = paged_write_rows(block_table, pos, 16)
+    assert page.tolist() == [1, 0, 4, 0] and writer.tolist() == [0, 3, 2, 3]
+
 def test_int4_fused_matches_jax():
     """int4_fused on a moe tree: the expert stacks quantise to the same
     codes as the reference's and the logits agree to 2e-2.  One sequence:

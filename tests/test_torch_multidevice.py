@@ -55,6 +55,19 @@ def _spawn(fn, tmp_path, *args) -> dict:
 
 
 # ---------------------------------------------------------------- spawn 1
+# (name, buf (E, C, D) placements, idx placements) on the 4x2 (data,
+# model) mesh: the moe's expert-parallel and tensor-parallel combines
+# (C = 6 over 4 data ranks splits unevenly, one block empty)
+TAKE_ROWS_LAYOUTS = [
+    ("ep", ["Shard(1)", "Shard(0)"], ["Shard(0)", "Replicate()"]),
+    ("ep_idx_whole", ["Shard(1)", "Shard(0)"], ["Replicate()", "Replicate()"]),
+    ("tp_partial", ["Shard(1)", "Partial()"], ["Shard(0)", "Replicate()"]),
+    ("d_split", ["Replicate()", "Shard(2)"], ["Shard(0)", "Replicate()"]),
+    ("e_on_both", ["Shard(0)", "Shard(1)"], ["Replicate()", "Replicate()"]),
+    ("idx_on_model", ["Replicate()", "Shard(1)"], ["Replicate()", "Shard(0)"]),
+]
+
+
 def _train_worker(rank, store_path, out_path, batch_np, ckpt_dir):
     """The 4x2 train step (internlm2-1.8b reduced) against the
     single-device step, and the elastic checkpoint paths (olmo-1b
@@ -111,6 +124,56 @@ def _train_worker(rank, store_path, out_path, batch_np, ckpt_dir):
     res["embed_shards"] = locals_
     res["embed_global"] = list(embed.shape)
     res["mesh_ranks"] = sorted(int(r) for r in mesh.mesh.flatten())
+
+    # -- the moe forward and backward on DTensors (qwen2-moe-a2.7b
+    #    reduced) on the 4x2 mesh: 2 rows on 4 data ranks (an uneven
+    #    token split) and 8 rows (an even one), against the plain step
+    cfg = get_config("qwen2-moe-a2.7b").reduced().replace(dtype="float32")
+    model = Model(cfg, device="cpu")
+    mplan = shd.make_plan(cfg, mesh)
+    for rows in (2, 8):
+        mb = {k: v[:rows] for k, v in batch.items()}
+        params = trainable(model.init(torch.Generator().manual_seed(0)))
+        loss1, _ = model.loss(params, mb)
+        g1 = torch.autograd.grad(loss1, tree_leaves(params))
+        pd = shd.distribute(trainable(model.init(torch.Generator().manual_seed(0))),
+                            shd.params_shardings(mplan, params))
+        with activation_hints(mesh):
+            loss2, _ = model.loss(pd, shd.distribute(mb, shd.batch_shardings(mplan, mb)))
+            g2 = torch.autograd.grad(loss2, tree_leaves(pd))
+        res[f"moe_loss_rows{rows}"] = [float(loss1), float(_full(loss2))]
+        res[f"moe_grad_rel_rows{rows}"] = max(_rel(_full(b), a) for a, b in zip(g1, g2))
+
+    # -- _dtensor.take_rows (the moe's combine) on the 4x2 mesh: its value
+    #    and buf's gradient against the plain index_select, per layout
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.kernels import _dtensor as dt
+    g = torch.Generator().manual_seed(3)
+    buf = torch.randn((4, 6, 8), generator=g, dtype=torch.float64)
+    idx = torch.randint(0, 24, (20,), generator=g)
+    w = torch.randn((20, 8), generator=g, dtype=torch.float64)
+    b0 = buf.clone().requires_grad_(True)
+    want = b0.reshape(-1, 8).index_select(0, idx)
+    (gwant,) = torch.autograd.grad((want * w).sum(), b0)
+    for name, bpl, ipl in TAKE_ROWS_LAYOUTS:
+        bpl = [eval(x) for x in bpl]
+        ipl = [eval(x) for x in ipl]
+        if any(isinstance(x, Partial) for x in bpl):
+            # a Partial buf: each rank's part is buf / 2 on the model axis
+            b1 = DTensor.from_local(buf.clone() / 2, mesh, [Replicate(), Partial()],
+                                    run_check=False).redistribute(mesh, bpl)
+        else:
+            b1 = DTensor.from_local(buf.clone(), mesh, [Replicate(), Replicate()],
+                                    run_check=False).redistribute(mesh, bpl)
+        b1 = b1.detach().requires_grad_(True)
+        i1 = DTensor.from_local(idx, mesh, [Replicate(), Replicate()],
+                                run_check=False).redistribute(mesh, ipl)
+        got = dt.take_rows(b1, i1)
+        (ggot,) = torch.autograd.grad((got * DTensor.from_local(
+            w, mesh, [Replicate(), Replicate()], run_check=False)).sum(), b1)
+        res[f"take_rows_{name}"] = [float((_full(got) - want).abs().max()),
+                                    float((_full(ggot) - gwant).abs().max()),
+                                    [repr(x) for x in got.placements]]
 
     # -- elastic: a checkpoint saved unsharded restores onto a 2x4 mesh;
     #    a 4x2 DTensor state saved as full tensors restores onto it too
@@ -184,6 +247,35 @@ def test_train_step_4x2_update(train_results):
     assert r["param_frac_off"] < 1e-4
 
 
+@pytest.mark.parametrize("rows", [2, 8])
+def test_moe_loss_and_grads_on_dtensors(train_results, rows):
+    """qwen2-moe-a2.7b reduced on the 4x2 mesh: the token dim's flatten
+    and unflatten run on local shards (2 rows on 4 data ranks split
+    unevenly, 8 evenly); the loss and every grad equal the plain ones."""
+    a, b = train_results[f"moe_loss_rows{rows}"]
+    assert abs(a - b) <= 1e-5 * abs(a)
+    assert train_results[f"moe_grad_rel_rows{rows}"] <= 1e-5
+
+
+@pytest.mark.parametrize("name,want", [
+    ("ep", ["Shard(dim=0)", "Partial(sum)"]),
+    ("ep_idx_whole", ["Replicate()", "Replicate()"]),
+    ("tp_partial", ["Shard(dim=0)", "Partial(sum)"]),
+    ("d_split", ["Shard(dim=0)", "Shard(dim=1)"]),
+    ("e_on_both", ["Replicate()", "Replicate()"]),
+    ("idx_on_model", ["Replicate()", "Shard(dim=0)"])])
+def test_take_rows_on_dtensors(train_results, name, want):
+    """The moe's combine on DTensors: rows of buf (E, C, D) picked on
+    each rank's block; a split of E or C gathered where the rows are
+    split on that mesh dim or where the gather moves fewer rows than
+    the Partial result's all-reduce would (all 20 rows on every rank),
+    else kept (the result a Partial sum there); value and buf's
+    gradient equal the plain index_select's."""
+    err, gerr, placements = train_results[f"take_rows_{name}"]
+    assert err <= 1e-12 and gerr <= 1e-12
+    assert placements == want
+
+
 def test_train_step_8_ranks_hold_shards(train_results):
     r = train_results
     assert r["mesh_ranks"] == list(range(WORLD))
@@ -210,10 +302,12 @@ def test_elastic_checkpoint_remesh(train_results):
 def _decode_worker(rank, store_path, out_path, inputs):
     """The sharded decode step (qwen2.5-3b reduced, cache planned by
     cache_shardings on a 2x4 mesh, B=2 and B=1), and the five kernel
-    wrappers' DTensor branch on a 4x2 mesh."""
+    wrappers' DTensor branch on a 4x2 mesh (and the dequantisation
+    kernel's)."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.dequantize import ops as dq
     from repro_torch.kernels.int4_matmul import ops as i4
     from repro_torch.kernels.paged_decode_attention import ops as pda
     from repro_torch.kernels.rmsnorm import ops as rn
@@ -304,6 +398,13 @@ def _decode_worker(rank, store_path, out_path, inputs):
                          ((S0, S1), (S1, S1), (R, S1))):
         check(f"int4 x{xp} w{wp}", i4.int4_matmul(put(x4, *xp), put(packed, *wp),
                                                    put(sc, *wp), group=32), want, outp)
+    codes, s32, s64 = T["dq_codes"], T["dq_scales32"], T["dq_scales64"]
+    for gs, cp, outp in ((s32, (S0, S2), (S0, S2)),   # experts over data, N over model
+                         (s32, (S1, R), (S1, R)),     # K over data, whole groups
+                         (s64, (S1, S2), (R, S2))):   # K over data inside groups
+        want = dq.dequantize(codes, gs, 4, torch.float32)
+        check(f"dequantize group {128 // gs.shape[1]} codes{cp}",
+              dq.dequantize(put(codes, *cp), put(gs, *cp), 4, torch.float32), want, outp)
     h, xs, dt, A, Bm, Cm = (T[n] for n in ("h", "xs", "dt", "A", "Bm", "Cm"))
     want_h, want_y = ssd.ssd_update(h.clone(), xs, dt, A, Bm, Cm)
     # heads (with Bm / Cm's groups) over model, N gathered, P over model
@@ -326,7 +427,9 @@ def _decode_worker(rank, store_path, out_path, inputs):
             ("paged_decode_attention", lambda: pda._check(
                 put(T["pq"], R, R), T["pk"], T["pv"], T["bt"], T["lens"], None, None)),
             ("int4_matmul", lambda: i4._check(put(x4, R, R), packed, sc, 32)),
-            ("ssd_update", lambda: ssd._check(put(h, R, R), xs, dt, A, Bm, Cm, None))):
+            ("ssd_update", lambda: ssd._check(put(h, R, R), xs, dt, A, Bm, Cm, None)),
+            ("dequantize", lambda: dq._check(put(codes, R, R), s32, 4,
+                                             torch.float32))):
         try:
             call()
             refused[name] = None
@@ -359,6 +462,9 @@ def _decode_inputs():
         "pks": pks.numpy(), "pvs": pvs.numpy(), "bt": bt, "lens": lens,
         "x4": f(8, 128), "packed": rng.integers(0, 256, (64, 64)).astype(np.uint8),
         "scales": (0.005 + 0.01 * rng.random((4, 64))).astype(np.float32),
+        "dq_codes": rng.integers(0, 256, (4, 64, 32)).astype(np.uint8),
+        "dq_scales32": (0.005 + 0.01 * rng.random((4, 4, 32))).astype(np.float32),
+        "dq_scales64": (0.005 + 0.01 * rng.random((4, 2, 32))).astype(np.float32),
         "h": f(4, 8, 16, 16), "xs": f(4, 8, 16), "dt": np.log1p(np.exp(f(4, 8))),
         "A": -np.exp(f(8)), "Bm": f(4, 2, 16), "Cm": f(4, 2, 16),
     }
@@ -383,7 +489,8 @@ def test_decode_step_seq_sharded_cache(decode_results, B):
     assert r[f"cache_spec_B{B}"] == want
 
 
-@pytest.mark.parametrize("kernel", ["rmsnorm", "decode_attention", "paged", "int4", "ssd"])
+@pytest.mark.parametrize("kernel", ["rmsnorm", "decode_attention", "paged", "int4", "ssd",
+                                    "dequantize"])
 def test_wrapper_dtensor_branch(decode_results, kernel):
     """Each wrapper on DTensor inputs split over the batch and over a
     reduced dim equals the plain call on the full tensors."""
