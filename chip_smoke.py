@@ -64,10 +64,10 @@ Phases, in order; each raises on failure and nothing catches:
     within one bf16 spacing of the plain version's plus 1e-5 x max|dx|
     (f32: 1e-5 x max|dx|), dw within one bf16 spacing plus 1e-3 x
     max|dw| (a sum over R rows in another order; f32 1e-5); two calls
-    bit-equal; ptxas' registers of both backward kernels; at R=2048 and
-    D 2048 (qwen2.5-3b), 3584 and 1536: kernel, plain and device times
-    beside the profiler's device time of ``F.rms_norm``'s backward under
-    autograd (timed only).
+    bit-equal; ptxas' registers of the backward kernel; at R=2048 and
+    D 2048 (qwen2.5-3b), 3584 and 1536, with its plan (``card_bwd_plan``):
+    kernel, plain and device times (by kernel) beside ``F.rms_norm``'s
+    backward under autograd timed the same two ways (timed only).
  6. SSD-update kernel against its plain version with f32 and bf16
     x/B/C at the mamba2-2.7b (1,80,64,128) and zamba2-1.2b (1,64,64,64)
     decode shapes, grouped (3,8,16,32, G=2) and with dt*A near -1e4
@@ -232,7 +232,8 @@ Phases, in order; each raises on failure and nothing catches:
     graph a step); step p50 and spread per arm, tokens/s, MFU (6 N T /
     step / 989e12), peak allocated memory, both arms' losses (finite and
     equal step for step), kernel launches a step, the profiler's top
-    device ops of one eager step and the graph's busy share.  Its
+    device ops of one eager step (and kernel 5's backward's launches and
+    device us in it) and the graph's busy share.  Its
     numbers go on a ``{"training": ...}`` line.
 19. the multi-device runtime (``launch/mesh``, ``sharding``, ``hints``)
     on a world-1 NCCL group started on an in-process ``HashStore`` (no
@@ -375,6 +376,10 @@ class Timer:
         launches, L2 flushed before each call (the flush left out), over
         the calls the profiler recorded: the kernels alone, without the
         launch and the timer's own cost."""
+        return sum(self.device_split_us(fn, iters).values()) or float("nan")
+
+    def device_split_us(self, fn, iters=20) -> dict:
+        """As ``device_us``, by kernel: {kernel name: device us per call}."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
@@ -386,7 +391,7 @@ class Timer:
         seen = [e for e in prof.key_averages() if e.self_device_time_total > 0
                 and "fill" not in e.key.lower() and "memset" not in e.key.lower()]
         calls = max((e.count for e in seen), default=0)   # the calls it recorded
-        return sum(e.self_device_time_total for e in seen) / calls if calls else float("nan")
+        return {e.key: e.self_device_time_total / calls for e in seen} if calls else {}
 
     def back_to_back_us(self, calls, reps=7) -> float:
         """us per call of ``calls`` (on distinct data) enqueued behind one
@@ -1071,9 +1076,10 @@ def check_rmsnorm_bwd(dev, timer):
             f"and without w: ok, repeat calls bit-equal (largest max_abs_err so far "
             f"{worst:.3g})")
     log_kernel_build("rmsnorm", "rmsnorm_bwd_kernel")
-    log_kernel_build("rmsnorm", "rmsnorm_dw_reduce")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     row, extra = None, {}
+
+    def split(us: dict) -> str:
+        return ", ".join(f"{k.split('(')[0][-40:]} {v:.2f}" for k, v in us.items())
     for D in NORM_BWD_TIMED:
         R = 2048
         x, w = norm_case(dev, torch.bfloat16, R, D, 11 * D)
@@ -1084,18 +1090,23 @@ def check_rmsnorm_bwd(dev, timer):
                   bwd_close(dw, want_dw, torch.bfloat16, "dw"))
         ms = timer(lambda: ops.rmsnorm_bwd(x, w, dy))
         plain_ms = timer(lambda: ref.rmsnorm_bwd_ref(x, w, dy))
-        dev_us = timer.device_us(lambda: ops.rmsnorm_bwd(x, w, dy))
+        dev_split = timer.device_split_us(lambda: ops.rmsnorm_bwd(x, w, dy))
+        dev_us = sum(dev_split.values())
         xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
         y = F.rms_norm(xr, (D,), wr, eps=1e-6)
-        lib_us = timer.device_us(
-            lambda: torch.autograd.grad(y, (xr, wr), dy, retain_graph=True))
-        lib_ms = lib_us / 1e3
+
+        def library():
+            return torch.autograd.grad(y, (xr, wr), dy, retain_graph=True)
+        lib_ms = timer(library)
+        lib_split = timer.device_split_us(library)
+        lib_us = sum(lib_split.values())
         nbytes = 3 * R * D * 2 + 2 * D * 2      # x, dy read, dx written; w, dw
         b_ms, b_by = bound_ms(nbytes, 10 * R * D, torch.float32)
-        log(f"  times, bf16 R={R} D={D} (plan {ops.bwd_plan(R, D, 2, n_sm)}): kernel "
-            f"{ms:.4f} ms (device {dev_us:.2f} us), plain {plain_ms:.4f} ms, "
-            f"F.rms_norm backward {lib_us:.2f} us device (profiler), bound "
-            f"{b_ms:.6f} ms ({b_by}: {nbytes} bytes)")
+        log(f"  times, bf16 R={R} D={D} (plan {ops.card_bwd_plan(R, D, 2, dev.index or 0)}): "
+            f"kernel {ms:.4f} ms (device {dev_us:.2f} us: {split(dev_split)}), plain "
+            f"{plain_ms:.4f} ms, F.rms_norm backward {lib_ms:.4f} ms (device {lib_us:.2f} "
+            f"us: {split(lib_split)}), bound {b_ms:.6f} ms ({b_by}: {nbytes} bytes); "
+            f"device {100 * b_ms * 1e3 / dev_us:.1f}% of the bound")
         if D == 2048:
             row = dict(name="rmsnorm_bwd", route="cuda",
                        source="src/repro_torch/csrc/rmsnorm.cu",
@@ -1104,15 +1115,16 @@ def check_rmsnorm_bwd(dev, timer):
                                 "RMSNorm, src/repro/models/common.py:37)",
                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms, device_us=dev_us,
-                       b2b_us=None,
+                       library_device_us=lib_us, b2b_us=None,
                        shape="bf16 R=2048 D=2048 with w (qwen2.5-3b training, every "
-                             "norm); library_ms: profiler device time of "
-                             "F.rms_norm's backward under autograd; d3584_*, "
-                             "d1536_*: D 3584 and 1536 at R=2048")
+                             "norm); library_ms: F.rms_norm's backward under "
+                             "autograd, timed as the kernel; library_device_us: its "
+                             "profiler device time; d3584_*, d1536_*: D 3584 and 1536 "
+                             "at R=2048")
         else:
             extra.update({f"d{D}_ms": ms, f"d{D}_plain_ms": plain_ms,
                           f"d{D}_bound_ms": b_ms, f"d{D}_library_ms": lib_ms,
-                          f"d{D}_device_us": dev_us})
+                          f"d{D}_library_device_us": lib_us, f"d{D}_device_us": dev_us})
         del xr, wr, y
     row.update(extra)
     return row
@@ -3075,10 +3087,11 @@ def kernel_kind(name: str) -> str:
                 "other")
 
 
-def top_device_ops(fn, n=15):
+def top_device_ops(fn, n=15, pick=()):
     """One call of ``fn`` under torch.profiler: (kernel ms summed, kernels
     launched, the n kernels with the most device time as (name, calls,
-    ms), ms by ``kernel_kind``)."""
+    ms), ms by ``kernel_kind``), and with ``pick`` a fifth item: (calls,
+    ms) of the kernels whose names hold one of ``pick``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3091,9 +3104,14 @@ def top_device_ops(fn, n=15):
         kind = kernel_kind(e.key)
         kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
     total = sum(e.self_device_time_total for e in events) / 1e3
-    return (total, sum(e.count for e in events),
-            [(e.key, e.count, e.self_device_time_total / 1e3) for e in events[:n]],
-            kinds)
+    out = (total, sum(e.count for e in events),
+           [(e.key, e.count, e.self_device_time_total / 1e3) for e in events[:n]],
+           kinds)
+    if not pick:
+        return out
+    picked = [e for e in events if any(k in e.key for k in pick)]
+    return out + ((sum(e.count for e in picked),
+                   sum(e.self_device_time_total for e in picked) / 1e3),)
 
 
 def log_profile(label, prof):
@@ -3190,10 +3208,14 @@ def train_full_width(dev):
     log(f"  eager step's kernel launches: {per_step} (kernel 5 forward: 2 a layer, "
         "recomputed under remat, and the final norm; backward: 2 a layer and the final)")
     b = synthetic_batch(cfg, DataCursor(7, n), batch=1, seq_len=TRAIN_SEQ, device=dev)
-    prof = top_device_ops(lambda: step(state, b))
-    log_profile("profiled eager step", prof)
+    prof = top_device_ops(lambda: step(state, b), pick=("rmsnorm_bwd",))
+    log_profile("profiled eager step", prof[:4])
     out["eager_kernel_ms"], out["eager_kernels"], out["eager_top_ops"], \
-        out["eager_ms_by_kind"] = prof
+        out["eager_ms_by_kind"], (calls, ms) = prof
+    out["norm_bwd_in_step"] = dict(launches=calls, device_us=ms * 1e3,
+                                   device_us_a_launch=ms * 1e3 / max(calls, 1))
+    log(f"  kernel 5's backward in the profiled eager step: {calls} launches, "
+        f"{ms * 1e3:.2f} us of device time ({ms * 1e3 / max(calls, 1):.2f} us a launch)")
     # the step's two halves alone: forward + backward, and the AdamW update
     params, opt_state = state
     leaves = tree_leaves(params)

@@ -32,6 +32,30 @@ prints, through the tree's own wrapper:
   inputs in turns with the kernel (kernel, F, F, kernel), with its
   device time and back-to-back time (timed only, never used by the port).
 
+``--only rmsnorm_bwd`` times kernel 5's backward instead (bf16 with w,
+R 2048 x D 1536, 2048, 3584: qwen2-vl, qwen2.5-3b, qwen2.5-7b) through
+each tree's ``rmsnorm_bwd`` and ``F.rms_norm``'s backward under autograd
+on the same inputs: ``ms`` by the Timer above, and ``device_us`` split
+by kernel (the profiler; each kernel's device time per call, the
+flush's own kernel subtracted), beside each backward kernel's registers
+a thread and local bytes (``cuobjdump -res-usage`` of the tree's
+library) and its theoretical occupancy (resident warps of 64 an SM,
+from registers, threads and shared memory), and, for a tree whose
+library has ``rmsnorm_bwd_occupancy``, the blocks an SM and the
+clusters the card holds at once (``cudaOccupancyMaxActiveBlocksPer
+Multiprocessor`` / ``MaxActiveClusters``).  ``in turns`` rows time each
+parent against this tree (parent, kernel, kernel, parent) and
+``F.rms_norm`` against the kernel; ``sweep`` rows (a tree whose
+``bwd_plan`` takes overrides) time the kernel at other plans: chunks a
+lane, blocks an SM, blocks a cluster.  The copies of this tree's source
+in BWD_VARIANTS stop early (``rows_only``: no dw stage; ``no_ticket``:
+the cluster's slice written, no ticket and no last pass; timed only) or
+change the cache hints or the blocks an SM, and a timeline copy stamps
+each block's phases (BWD_STAMPS), all with ``--only rmsnorm_bwd``.  With
+``--step`` each tree also trains one eager qwen2.5-3b step at full width
+(chip_smoke phase 18c's cell) in a process of its own, in turns, and
+reports kernel 5's backward's launches and device us in it.
+
 Variants are copies of a tree's source with textual edits, built into
 ``build/probe/`` and called through that tree's wrapper with its
 ``_lib`` swapped.  Each variant lists alternative edit sets; the first
@@ -60,6 +84,7 @@ import argparse
 import ctypes
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -82,11 +107,15 @@ from repro_torch.kernels.ssd_update import ref as ssd_ref  # noqa: E402
 
 OUT = ROOT / "chiprun_out"
 KERNELS = ("ssd_update", "rmsnorm")
-LAUNCH = {"ssd_update": "ssd_update_launch", "rmsnorm": "rmsnorm_launch"}
+PARTS = KERNELS + ("rmsnorm_bwd",)
+LAUNCH = {"ssd_update": "ssd_update_launch", "rmsnorm": "rmsnorm_launch",
+          "rmsnorm_bwd": "rmsnorm_bwd_launch"}
 SSD_SHAPES = {"mamba2-2.7b": ((1, 80, 64, 128, 1), 64),   # (B, H, P, N, G), states b2b
               "zamba2-1.2b": ((1, 64, 64, 64, 1), 96)}
 NORM_SHAPES = [(R, D) for R in (1, 2048) for D in (2560, 3584, 5120)]
 NORM_B2B = {1: 129, 2048: 8}        # decode rows of a mamba2 step; prompts past L2
+BWD_SHAPES = [(2048, D) for D in (1536, 2048, 3584)]   # qwen2-vl, qwen2.5-3b, qwen2.5-7b
+BWD_SWEEP = dict(chunks=(2, 4, 8), blocks_per_sm=(1, 2, 3), cluster=(4, 8))
 NEVER = "-1.2345e30f"               # a guard no value meets: the store is kept in the code
 
 VARIANTS = {   # kernel: variant: alternative edit sets, each [(old, new), ...]
@@ -124,6 +153,53 @@ VARIANTS = {   # kernel: variant: alternative edit sets, each [(old, new), ...]
              ("  *reinterpret_cast<uint4*>(p) = v;", "  __stcs(reinterpret_cast<uint4*>(p), v);")]],
     },
 }
+
+# Kernel 5's backward (``--only rmsnorm_bwd``), timed only: each copy
+# stops where it says, behind a test of eps that the compiler cannot
+# fold (eps > 0 in every call), so the code after it is still compiled.
+BWD_VARIANTS = {
+    "rows_only": [[("  if (w == nullptr) return;\n",
+                    "  if (w == nullptr) return;\n  if (eps > 0.f) return;\n")]],
+    "no_ticket": [[("  if (tid == 0) {     // release: the slice's row p; acquire: the other rows\n",
+                    "  if (eps > 0.f) return;\n"
+                    "  if (tid == 0) {     // release: the slice's row p; acquire: the other rows\n")]],
+}
+# and copies with other cache hints on the rows (right outputs): x and dy
+# read through L1 (``l1_loads``) or as streaming (``ldcs``), dx written as
+# streaming (``stcs``)
+_BWD_LOADS = [
+    ("        xv[j] = ld_once(x + (size_t)r * D + (size_t)(lo + j * span) * V);\n"
+     "        dv[j] = ld_once(dy + (size_t)r * D + (size_t)(lo + j * span) * V);\n"),
+    ("          xn[j] = ld_once(x + next + (size_t)(lo + j * span) * V);\n"
+     "          dn[j] = ld_once(dy + next + (size_t)(lo + j * span) * V);\n")]
+_BWD_HEAD = "// blockDim.x = 32 * warps * groups; chunks C cover the row: C * 32 *\n"
+BWD_VARIANTS["l1_loads"] = [[(old, old.replace("ld_once(", "ld_row(")) for old in _BWD_LOADS]]
+BWD_VARIANTS["ldcs"] = [[
+    (_BWD_HEAD, "__device__ __forceinline__ uint4 ld_cs(const void* p) {\n"
+                "  return __ldcs(reinterpret_cast<const uint4*>(p));\n}\n" + _BWD_HEAD)]
+    + [(old, old.replace("ld_once(", "ld_cs(")) for old in _BWD_LOADS]]
+BWD_VARIANTS["stcs"] = [[("        st_row(dxr + (size_t)i * V, pack<T>(o));\n",
+                          "        __stcs(reinterpret_cast<uint4*>(dxr + (size_t)i * V), "
+                          "pack<T>(o));\n")]]
+
+# and a copy whose registers allow 3 blocks an SM at 2 chunks a lane, run
+# at 3 blocks an SM (the plan's overrides beside each variant)
+BWD_VARIANTS["three_blocks"] = [[(
+    "__host__ __device__ constexpr int bwd_min_blocks(int C) { return C <= 4 ? 2 : 1; }",
+    "__host__ __device__ constexpr int bwd_min_blocks(int C) { return C <= 2 ? 3 : C <= 4 ? 2 : 1; }")]]
+BWD_VARIANT_PLANS = {"three_blocks": dict(blocks_per_sm=3, max_clusters=45)}
+
+# Kernel 5's backward's timeline copy (thread 0 of each block), stamped as
+# STAMPS below.
+BWD_STAMPS = [[
+    ("entry", "  const int q0 = min(Q, (int)rank * per), q1 = min(Q, q0 + per);\n", True, None),
+    ("rows done", "  }   // rows\n  if (w == nullptr) return;\n", True, None),
+    ("part pushed", "  mbar_wait(&bar, 0);\n", False, None),
+    ("cluster's parts in", "  mbar_wait(&bar, 0);\n", True, None),
+    ("cluster's slice written",
+     "  if (tid == 0) {     // release: the slice's row p; acquire: the other rows\n", False, None),
+    ("ticket taken", "    last_s = prev == P - 1;\n  }\n  __syncthreads();\n", True, None),
+    ("slice of dw written", "  if (tid == 0) tickets[rank] = 0;\n", True, None)]]
 
 # The timeline copy: (point, anchor, stamp after the anchor, condition or
 # None).  "first load in" tests a value computed from the loads, so the
@@ -189,12 +265,13 @@ def tree_ops(root: Path) -> dict:
         sys.modules.update(saved)
 
 
-def build_variants(trees: dict) -> dict:
-    """Every variant and timeline copy of every tree's two sources, built
-    in parallel: {(tree, kernel): {variant: (cdll, stamps or None)}}."""
+def build_variants(trees: dict, kernels=KERNELS) -> dict:
+    """Every variant and timeline copy of every tree's sources of
+    ``kernels``, built in parallel: {(tree, kernel): {variant: (cdll,
+    stamps or None)}}."""
     jobs = {}
     for tag, (root, _) in trees.items():
-        for kernel in KERNELS:
+        for kernel in kernels:
             text = (root / "src" / "repro_torch" / "csrc" / f"{kernel}.cu").read_text()
             for variant, alts in VARIANTS[kernel].items():
                 made = edited(text, alts)
@@ -313,6 +390,69 @@ def timeline(cdll, stamps, run, flush) -> dict:
     return out
 
 
+def split_us(fn, flush, iters: int = 20, clean: bool = False) -> dict:
+    """torch.profiler device time per call (us) of each kernel ``fn``
+    launches, L2 flushed before each call: 256 MB written (L2 left full
+    of dirty lines, as chip_smoke's Timer leaves it) or, with ``clean``,
+    read; the flush's own kernels, profiled alone first, are subtracted
+    by name."""
+    from torch.profiler import ProfilerActivity, profile
+    wipe = (lambda: flush.view(torch.float32).sum()) if clean else flush.zero_
+
+    def per_call(f):
+        f()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                f()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total / iters for e in prof.key_averages()
+                if e.self_device_time_total > 0}
+    own = per_call(wipe)
+    both = per_call(lambda: (wipe(), fn()))
+    out = {k[:90]: v - own.get(k, 0.0) for k, v in both.items()}
+    return {k: v for k, v in out.items() if v > 0.05}
+
+
+def res_usage(lib: Path, names=("rmsnorm_bwd", "rmsnorm_dw_reduce")) -> dict:
+    """Registers a thread, local (spill) and static shared bytes of each
+    kernel instance in ``lib`` whose name holds one of ``names``
+    (``cuobjdump -res-usage``)."""
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-res-usage", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, fn = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            fn = line[len("Function "):].rstrip(":")
+        elif fn and "REG:" in line and any(n in fn for n in names):
+            fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+            out[fn[:80]] = {k: int(fields[k]) for k in ("REG", "LOCAL", "SHARED")
+                            if k in fields and fields[k].isdigit()}
+    return out
+
+
+def theoretical_warps(regs: int, threads: int, smem: int) -> int:
+    """Resident warps an SM (of 64) for blocks of ``threads`` at
+    ``regs`` registers a thread and ``smem`` shared bytes a block:
+    registers by warp in units of 256, at most 32 blocks, 2048 threads,
+    227 KB of shared memory an SM (1 KB of it reserved a block)."""
+    warps = -(-threads // 32)
+    per_warp = -(-max(regs, 1) * 32 // 256) * 256
+    blocks = min(32, 2048 // (32 * warps), (65536 // per_warp) // warps,
+                 (233472 // (smem + 1024)) if smem else 32)
+    return blocks * warps
+
+
+def bwd_inputs(dev, R, D, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (3 * torch.randn((R, D), generator=g, device=dev)).bfloat16()
+    dy = (torch.randn((R, D), generator=g, device=dev) / 3).bfloat16()
+    w = (1 + 0.1 * torch.randn((D,), generator=g, device=dev)).bfloat16()
+    return x, dy, w
+
+
 def ssd_inputs(dev, B, H, P, N, G, seed, states=1):
     g = torch.Generator(device=dev).manual_seed(seed)
     hs = [torch.randn((B, H, P, N), generator=g, device=dev) for _ in range(states)]
@@ -336,7 +476,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, action="append", default=[],
                     help="root of another checkout to time beside (repeatable)")
-    ap.add_argument("--only", choices=KERNELS, help="one of the two kernels")
+    ap.add_argument("--only", choices=PARTS, help="one kernel (rmsnorm_bwd: kernel "
+                    "5's backward, timed only when named)")
+    ap.add_argument("--step", action="store_true", help="with --only rmsnorm_bwd: "
+                    "also profile one qwen2.5-3b training step in each tree")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("ssd_rmsnorm_probe: no CUDA device", file=sys.stderr)
@@ -349,7 +492,8 @@ def main() -> int:
     trees = {"kernel": (ROOT, tree_ops(ROOT))}
     for p in a.parent:
         trees[f"parent {p}"] = (p.resolve(), tree_ops(p.resolve()))
-    variants = build_variants(trees)
+    variants = build_variants(trees, KERNELS if a.only is None else
+                              tuple(k for k in KERNELS if k == a.only))
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     result = {"device": smi, "rows": []}
 
@@ -461,10 +605,173 @@ def main() -> int:
                                       b2b_us=back_to_back([call(ops, xi) for xi in rows],
                                                           flush)))
             del xs, rows, x
+    if a.only == "rmsnorm_bwd":
+        probe_bwd(trees, flush, emit, a.step)
     OUT.mkdir(exist_ok=True)
     (OUT / "ssd_rmsnorm_probe.json").write_text(json.dumps(result, indent=1))
     print(smi)
     return 0
+
+
+# One eager qwen2.5-3b training step at full width (chip_smoke phase 18c's
+# cell: bf16, batch 1, seq 2048, remat blocks, AdamW) after two warm-up
+# steps, profiled: kernel 5's backward's launches and device us in it.
+# Run in a process of its own from each tree's root, so each tree's
+# package trains.
+STEP_CODE = r"""
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.configs import get_config
+from repro_torch.models.model import Model
+from repro_torch.training import (AdamW, DataCursor, cosine_schedule, make_train_step,
+                                  synthetic_batch, trainable)
+dev = torch.device("cuda", 0)
+cfg = get_config("qwen2.5-3b")
+model = Model(cfg, device=dev)
+opt = AdamW(lr=cosine_schedule(3e-4, 2, 100))
+step = make_train_step(model, opt, remat="blocks")
+params = trainable(model.init(torch.Generator(device=dev).manual_seed(0)))
+state = (params, opt.init(params))
+batches = [synthetic_batch(cfg, DataCursor(7, i), batch=1, seq_len=2048, device=dev)
+           for i in range(3)]
+for b in batches[:2]:
+    state, _ = step(state, b)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    state, _ = step(state, batches[2])
+    torch.cuda.synchronize()
+picked = [e for e in prof.key_averages() if e.self_device_time_total > 0
+          and ("rmsnorm_bwd" in e.key or "rmsnorm_dw_reduce" in e.key)]
+total = sum(e.self_device_time_total for e in prof.key_averages() if e.self_device_time_total > 0)
+print(json.dumps(dict(kernels={e.key[:60]: [e.count, e.self_device_time_total] for e in picked},
+                      device_us=sum(e.self_device_time_total for e in picked),
+                      step_device_ms=total / 1e3)))
+"""
+
+
+def step_us(root: Path) -> dict:
+    """STEP_CODE run from the tree at ``root``: its JSON line."""
+    done = subprocess.run([sys.executable, "-c", STEP_CODE], cwd=root, capture_output=True,
+                          text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(root / "src")})
+    if done.returncode != 0:
+        raise RuntimeError(f"training step in {root} failed:\n{done.stderr[-3000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def probe_bwd(trees: dict, flush, emit, step: bool = False) -> None:
+    """Kernel 5's backward in every tree beside ``F.rms_norm``'s
+    backward at BWD_SHAPES (see the module's docstring)."""
+    import torch.nn.functional as F
+    dev = flush.device
+    n_sm = _build.sm_count(0)
+    text = (ROOT / "src" / "repro_torch" / "csrc" / "rmsnorm.cu").read_text()
+    jobs = {v: edited(text, alts) for v, alts in BWD_VARIANTS.items()}
+    jobs = {v: t for v, t in jobs.items() if t is not None}
+    line = stamped(text, BWD_STAMPS)
+    if line is not None:
+        jobs["timeline"] = line[0]
+    with ThreadPoolExecutor(8) as pool:
+        cut = dict(zip(jobs, pool.map(lambda v: compile_copy(jobs[v], f"bwd_{v}",
+                                                             "rmsnorm_bwd_kernel"), jobs)))
+    if "timeline" in cut:
+        cut["timeline"].probe_ts_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for tag, (root, tops) in trees.items():
+        ops = tops["rmsnorm"]
+        lib = ops._build._lib_path("rmsnorm")
+        ops._lib()
+        emit(dict(kernel="rmsnorm_bwd", tree=tag, variant="resources",
+                  res_usage=res_usage(lib)))
+    if step:   # each tree's step in turns: parent, kernel, kernel, parent
+        order = list(trees.items())
+        order = order[1:] + order[:1] + order[:1] + order[1:] if len(order) > 1 else order
+        for tag, (root, _) in order:
+            emit(dict(kernel="rmsnorm_bwd", tree=tag, variant="training step", **step_us(root)))
+    for R, D in BWD_SHAPES:
+        shape = f"R={R} D={D}"
+        x, dy, w = bwd_inputs(dev, R, D, 11 * D)
+        want_dx, want_dw = norm_ref.rmsnorm_bwd_ref(x, w, dy)
+
+        def call(ops):
+            return lambda: ops.rmsnorm_bwd(x, w, dy)
+
+        def check(ops):
+            dx, dw = ops.rmsnorm_bwd(x, w, dy)
+            dx2, dw2 = ops.rmsnorm_bwd(x, w, dy)
+            return dict(dx_err=float((dx.float() - want_dx.float()).abs().max()),
+                        dw_err=float((dw.float() - want_dw.float()).abs().max()),
+                        repeat_equal=bool(torch.equal(dx, dx2) and torch.equal(dw, dw2)))
+        for tag, (root, tops) in trees.items():
+            ops = tops["rmsnorm"]
+            plan = (ops.card_bwd_plan(R, D, 2, 0) if hasattr(ops, "card_bwd_plan")
+                    else ops.bwd_plan(R, D, 2, n_sm))
+            row = dict(kernel="rmsnorm_bwd", shape=shape, tree=tag, variant="as is",
+                       plan=plan._asdict() if hasattr(plan, "_asdict") else list(plan),
+                       **check(ops), ms=timed(call(ops), flush),
+                       device_us=split_us(call(ops), flush), host_us=host_us(call(ops)))
+            row["device_us_total"] = sum(row["device_us"].values())
+            row["clean_device_us_total"] = sum(split_us(call(ops), flush, clean=True).values())
+            no_w = lambda: ops.rmsnorm_bwd(x, None, dy)  # noqa: E731
+            row["no_w_device_us_total"] = sum(split_us(no_w, flush).values())
+            row["no_w_clean_device_us_total"] = sum(split_us(no_w, flush, clean=True).values())
+            if hasattr(ops._lib(), "rmsnorm_bwd_occupancy"):
+                row["occupancy"] = ops.bwd_occupancy(plan, 2, D)
+            else:   # the parent's: blocks of 32 * warps threads, no dynamic shared memory
+                regs = next((v["REG"] for k, v in res_usage(ops._build._lib_path("rmsnorm"),
+                                                            ("rmsnorm_bwd_kernel",)).items()
+                             if f"nv_bfloat16Li{plan[1]}E" in k), None)
+                if regs is not None:
+                    row["theoretical_warps"] = theoretical_warps(regs, 32 * plan[0], 128)
+            emit(row)
+        ops = trees["kernel"][1]["rmsnorm"]
+        for tag, (_, old) in list(trees.items())[1:]:
+            times = {"parent": [], "kernel": []}
+            for who in ("parent", "kernel", "kernel", "parent"):
+                times[who].append(timed(call(old["rmsnorm"] if who == "parent" else ops), flush))
+            emit(dict(kernel="rmsnorm_bwd", shape=shape, tree=tag, variant="in turns",
+                      parent_ms=times["parent"], ms=times["kernel"]))
+        for variant, cdll in cut.items():
+            with swapped(ops, "rmsnorm_bwd", cdll), \
+                    patched(ops, "bwd_plan", **BWD_VARIANT_PLANS.get(variant, {})):
+                if variant == "timeline":
+                    emit(dict(kernel="rmsnorm_bwd", shape=shape, variant=variant,
+                              points=timeline(cdll, line[1], call(ops), flush)))
+                    continue
+                emit(dict(kernel="rmsnorm_bwd", shape=shape, variant=variant,
+                          ms=timed(call(ops), flush),
+                          device_us_total=sum(split_us(call(ops), flush).values())))
+        xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+        y = F.rms_norm(xr, (D,), wr, eps=1e-6)
+        lib = lambda: torch.autograd.grad(y, (xr, wr), dy, retain_graph=True)  # noqa: E731
+        times = {"F.rms_norm": [], "kernel": []}
+        for who in ("kernel", "F.rms_norm", "F.rms_norm", "kernel"):
+            times[who].append(timed(lib if who == "F.rms_norm" else call(ops), flush))
+        split = split_us(lib, flush)
+        emit(dict(kernel="rmsnorm_bwd", shape=shape, variant="F.rms_norm in turns",
+                  ms=times["kernel"], library_ms=times["F.rms_norm"],
+                  library_device_us=split, library_device_us_total=sum(split.values()),
+                  library_clean_device_us_total=sum(split_us(lib, flush, clean=True).values())))
+        del xr, wr, y
+        if "cluster" in getattr(ops.bwd_plan, "__wrapped__", ops.bwd_plan).__code__.co_varnames:
+            for chunks in BWD_SWEEP["chunks"]:
+                for bps in BWD_SWEEP["blocks_per_sm"]:
+                    for cl in BWD_SWEEP["cluster"]:
+                        over = dict(chunks=chunks, blocks_per_sm=bps, cluster=cl)
+                        try:
+                            ops.bwd_plan(R, D, 2, n_sm, **over)
+                        except ValueError:
+                            continue
+                        with patched(ops, "bwd_plan", **over):
+                            plan = ops.card_bwd_plan(R, D, 2, 0)
+                            fn = call(ops)
+                            split = split_us(fn, flush)
+                            emit(dict(kernel="rmsnorm_bwd", shape=shape, variant="sweep",
+                                      plan=plan._asdict(), **check(ops), ms=timed(fn, flush),
+                                      device_us_total=sum(split.values()),
+                                      clean_device_us_total=sum(
+                                          split_us(fn, flush, clean=True).values()),
+                                      occupancy=ops.bwd_occupancy(plan, 2, D)))
+        del x, dy, w
 
 
 if __name__ == "__main__":

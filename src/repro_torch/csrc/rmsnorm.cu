@@ -251,75 +251,217 @@ extern "C" int rmsnorm_launch(const void* x, long long x_stride,
 //   dx = r g - x r^3 mean(g x)                      rounded once to T
 //   dw = sum over rows of dy x r                    f32, then T
 //
-// What bounds it: bytes (x and dy read once, dx written once: 3 R D
-// elements; dw and its partials are D-sized per block).  The rows are
-// the forward's: a block of `warps` warps owns one row at a time and
-// holds it in registers from its one read (each lane C 16-byte chunks of
-// x, of dy and of w, neighbouring lanes on neighbouring chunks), reduces
-// the row's two sums (x^2 and g x) by shuffles and one shared-memory step
-// between the warps, and writes dx from the registers.  r is recomputed
-// from x: no statistics are saved by the forward.  Block b walks rows b,
-// b + grid, ... and keeps its part of dw in registers, in row order; it
-// writes that part as row b of an f32 (grid, D) buffer.  A second kernel
-// adds the grid parts of each column in a fixed order.  No atomics: two
-// calls, and a graph replay, give the same bits.
+// What bounds it: bytes.  x and dy are read once and dx is written once:
+// 3 R D elements, 25.2 MB at R = D = 2048 bf16 (7.5 us at 3.35 TB/s).
+// With w the dw scratch adds 2 P D f32 (P = grid / cluster: 0.49 MB at
+// that shape, 2%), and every group reads w, D elements, from L1 each
+// row.  One launch, no atomic on a value.
+//
+// The plan is the wrapper's (`bwd_plan` / `card_bwd_plan` in
+// kernels/rmsnorm/ops.py) and is only checked here.  Rows: a group of
+// `warps` warps owns one row at a time, each lane C 16-byte chunks of x
+// and of dy (neighbouring lanes on neighbouring chunks; 2 where 8 warps
+// allow it, up to D 4096 bf16), a block of at most kBwdThreads threads
+// holds `groups` groups and walks rows grid * groups apart, and a group
+// issues its next row's loads before it reduces the current one: two
+// rows of every group in flight (64 KB an SM at D 2048 bf16) and no block
+// barrier between a row's loads and the next row's.  x and dy are read
+// past L1 (each once), which keeps w there.  The two sums (x^2 and g x)
+// reduce by shuffles and, with several warps, one shared-memory step at
+// the group's own named barrier (two slots by row parity: one barrier a
+// row).  dx is written from the registers; r is recomputed from x (the
+// forward saves no statistics).  Each lane keeps its chunks' part of dw
+// in f32 registers, adding its rows in order.
+//
+// dw: the blocks run in clusters of `cluster`, and block k of a cluster
+// owns slice k of the columns.  Each group pushes every column of its
+// part to the block that owns it (st.async into that block's shared
+// memory, counted by its mbarrier: no barrier of the whole cluster and
+// no fence behind the dx stores); the owner waits for the cluster's
+// parts, adds them in (rank, group) order and writes the sum as row p
+// (the cluster's index) of an f32 (P, D) scratch.  It then takes a
+// ticket of slice k (an acq_rel atomic add after the block's barrier, the
+// only atomic); the block that takes the last of slice k's P tickets adds
+// the slice's P rows in a fixed order (thread sets over rows p = j mod
+// sets, then the sets in j order), writes dw and puts the ticket back to
+// 0, so each launch leaves the tickets as it found them.  Up to `cluster`
+// blocks add the slices at once.  Repeated calls and graph replays give
+// the same bits.  The tickets are the wrapper's, one set per device:
+// calls on one device run in one stream order.  Widths: D up to 32 x 8
+// lanes x 8 chunks of 16 bytes (16384 bf16, 8192 f32), a multiple of 16
+// bytes.  scripts/ssd_rmsnorm_probe.py --only rmsnorm_bwd times it, its
+// plans and ablations (PERF.md, row 5b).
 
 namespace {
 
-constexpr int kBwdMaxChunks = 4;   // 16-byte chunks of a row a lane holds
-constexpr int kBwdMaxWarps = 16;   // warps of a row (512 threads)
-constexpr int kReduceRows = 16;    // threadIdx.y of the dw reduction
+constexpr int kBwdThreads = 256;    // most threads of a backward block
+constexpr int kBwdMaxChunks = 8;    // 16-byte chunks of a row a lane holds
+constexpr int kBwdMaxCluster = 8;   // blocks of a cluster: the tickets
+constexpr int kFinalBatch = 8;      // scratch rows a thread of a last block loads at once
 
+// Blocks an SM the registers must allow at C chunks a lane: a lane
+// holds 4 C 16-byte registers (this row's and the next row's x and dy)
+// and C x V f32 of dw.
+__host__ __device__ constexpr int bwd_min_blocks(int C) { return C <= 4 ? 2 : 1; }
+// The most dynamic shared memory a launch asks for: the cluster's groups'
+// parts of a block's slice, groups x (D / 4 + cluster) float4, with
+// groups x D <= 32 x 8 warps x C x V.
+template <typename T>
+constexpr int bwd_max_smem(int C) {
+  return (kBwdThreads * C * (int)Vec<T>::n + 4 * kBwdMaxCluster * kBwdThreads / 32) * 4;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned phase) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n"
+      "BWD_WAIT:\n\t"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n\t"
+      "@!done bra BWD_WAIT;\n\t}"
+      ::"r"(smem_addr(bar)), "r"(phase) : "memory");
+}
+// v into the shared memory of block `rank` of this cluster at the place of
+// `dst` there, counted by that block's mbarrier at the place of `bar`.
+__device__ __forceinline__ void push4(float4* dst, unsigned long long* bar, unsigned rank,
+                                      float4 v) {
+  unsigned d, b;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(d) : "r"(smem_addr(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(b) : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];"
+      ::"r"(d), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(b) : "memory");
+}
+// x and dy are read once: past L1, where no line is allocated for them
+__device__ __forceinline__ uint4 ld_once(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ void st_dw(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st_dw(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);   // round to nearest even
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<unsigned*>(&a),
+                                            *reinterpret_cast<unsigned*>(&b));
+}
+
+// blockDim.x = 32 * warps * groups; chunks C cover the row: C * 32 *
+// warps >= D / V; gridDim.x a multiple of the cluster's blocks.  With w:
+// dynamic shared memory of cluster * groups * ceil(D / 4 / cluster)
+// float4, dw_part (P, D) f32 and tickets[cluster] int32, all 0.
 template <typename T, int C>
-__global__ void __launch_bounds__(32 * kBwdMaxWarps) rmsnorm_bwd_kernel(
-    const T* __restrict__ x, const T* __restrict__ dy,
-    const T* __restrict__ w, T* __restrict__ dx, float* __restrict__ dw_part,
-    int R, int D, float eps) {
+__global__ void __launch_bounds__(kBwdThreads, bwd_min_blocks(C)) rmsnorm_bwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ dy, const T* __restrict__ w,
+    T* __restrict__ dx, float* dw_part, int* tickets, T* __restrict__ dw, int R, int D,
+    int warps, float eps) {
   constexpr int V = Vec<T>::n;
-  __shared__ float2 part[kBwdMaxWarps];   // the warps' (sum x^2, sum g x)
+  extern __shared__ float4 recv[];                // with w: (cluster, groups, per): the
+                                                  // parts of this block's slice of dw
+  __shared__ float2 part[2][kBwdThreads / 32];    // the warps' (sum x^2, sum g x), by row parity
+  __shared__ float4 sets_s[kBwdThreads];          // the last block's thread sets
+  __shared__ __align__(8) unsigned long long bar; // counts the parts pushed here
+  __shared__ int last_s;
   const int nvec = D / V;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int warps = blockDim.x / 32;
-  const int span = blockDim.x;            // lanes of a row
-  const int lo = threadIdx.x;             // the lane's first chunk
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int groups = blockDim.x / (32 * warps);
+  const int group = warp / warps;
+  const int span = warps * 32;                    // lanes of a row
+  const int lo = (warp % warps) * 32 + lane;      // the lane's first chunk
+  const int step = gridDim.x * groups;
+  int r = blockIdx.x * groups + group;
+  const int Q = D / 4;                            // float4 columns of a row
+  const unsigned rank = cluster_rank(), ncl = cluster_blocks();
+  const int per = (Q + (int)ncl - 1) / (int)ncl;  // columns of a slice
+  const int q0 = min(Q, (int)rank * per), q1 = min(Q, q0 + per);
 
-  uint4 wv[C];
-  float acc[C][V];                        // this block's part of dw
+  float acc[C][V];                                // this lane's part of dw
 #pragma unroll
-  for (int j = 0; j < C; ++j) {
-    if (w != nullptr && lo + j * span < nvec)
-      wv[j] = ld_row(w + (size_t)(lo + j * span) * V);
+  for (int j = 0; j < C; ++j)
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[j][k] = 0.f;
-  }
-  for (int r = blockIdx.x; r < R; r += gridDim.x) {
-    const T* xr = x + (size_t)r * D;
-    const T* dyr = dy + (size_t)r * D;
-    uint4 xv[C], dv[C];
+  uint4 xv[C], dv[C];
+  if (r < R) {
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       if (lo + j * span < nvec) {
-        xv[j] = ld_row(xr + (size_t)(lo + j * span) * V);
-        dv[j] = ld_row(dyr + (size_t)(lo + j * span) * V);
+        xv[j] = ld_once(x + (size_t)r * D + (size_t)(lo + j * span) * V);
+        dv[j] = ld_once(dy + (size_t)r * D + (size_t)(lo + j * span) * V);
+      }
+    }
+  }
+  if (w != nullptr) {   // this block's mbarrier, before any block pushes to it
+    if (tid == 0) {
+      mbar_init(&bar, 1);
+      mbar_expect(&bar, (unsigned)(ncl * groups * (q1 - q0) * sizeof(float4)));
+    }
+    cluster_arrive_relaxed();
+    cluster_wait();
+  }
+  int parity = 0;
+  for (; r < R; r += step) {
+    uint4 xn[C], dn[C];   // the next row, in flight while this one is reduced
+    if (r + step < R) {
+      const size_t next = (size_t)(r + step) * D;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (lo + j * span < nvec) {
+          xn[j] = ld_once(x + next + (size_t)(lo + j * span) * V);
+          dn[j] = ld_once(dy + next + (size_t)(lo + j * span) * V);
+        }
       }
     }
     float ss = 0.f, sgx = 0.f;
+    float g[C][V];     // dy * w, kept for dx
 #pragma unroll
     for (int j = 0; j < C; ++j) {
-      if (lo + j * span < nvec) {
-        float f[V], d[V];
+      const int i = lo + j * span;
+      if (i < nvec) {
+        float f[V];
         unpack<T>(xv[j], f);
-        unpack<T>(dv[j], d);
+        unpack<T>(dv[j], g[j]);
         if (w != nullptr) {
           float fw[V];
-          unpack<T>(wv[j], fw);
+          unpack<T>(ld_row(w + (size_t)i * V), fw);
 #pragma unroll
-          for (int k = 0; k < V; ++k) d[k] *= fw[k];
+          for (int k = 0; k < V; ++k) g[j][k] *= fw[k];
         }
 #pragma unroll
         for (int k = 0; k < V; ++k) {
           ss += f[k] * f[k];
-          sgx += d[k] * f[k];
+          sgx += g[j][k] * f[k];
         }
       }
     }
@@ -329,9 +471,10 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps) rmsnorm_bwd_kernel(
       sgx += __shfl_xor_sync(0xffffffffu, sgx, off);
     }
     if (warps > 1) {   // one shared-memory step between the row's warps
-      if (lane == 0) part[warp] = make_float2(ss, sgx);
-      __syncthreads();
-      const float2 p = lane < warps ? part[lane] : make_float2(0.f, 0.f);
+      if (lane == 0) part[parity][warp] = make_float2(ss, sgx);
+      group_sync(1 + group, span);
+      const float2 p = lane < warps ? part[parity][group * warps + lane]
+                                    : make_float2(0.f, 0.f);
       ss = p.x;
       sgx = p.y;
 #pragma unroll
@@ -339,137 +482,241 @@ __global__ void __launch_bounds__(32 * kBwdMaxWarps) rmsnorm_bwd_kernel(
         ss += __shfl_xor_sync(0xffffffffu, ss, off);
         sgx += __shfl_xor_sync(0xffffffffu, sgx, off);
       }
-      __syncthreads();   // every warp has read part before the next row
+      parity ^= 1;
     }
     const float rr = 1.f / sqrtf(ss / (float)D + eps);
     const float c = rr * rr * rr * (sgx / (float)D);
+    T* dxr = dx + (size_t)r * D;
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       const int i = lo + j * span;
       if (i < nvec) {
-        float f[V], d[V], o[V];
+        float f[V], o[V];
         unpack<T>(xv[j], f);
-        unpack<T>(dv[j], d);
+#pragma unroll
+        for (int k = 0; k < V; ++k) o[k] = rr * g[j][k] - f[k] * c;
         if (w != nullptr) {
-          float fw[V];
-          unpack<T>(wv[j], fw);
+          float d[V];
+          unpack<T>(dv[j], d);
 #pragma unroll
-          for (int k = 0; k < V; ++k) {
-            o[k] = rr * (d[k] * fw[k]) - f[k] * c;
-            acc[j][k] += d[k] * f[k] * rr;
-          }
-        } else {
-#pragma unroll
-          for (int k = 0; k < V; ++k) o[k] = rr * d[k] - f[k] * c;
+          for (int k = 0; k < V; ++k) acc[j][k] += d[k] * f[k] * rr;
         }
-        st_row(dx + (size_t)r * D + (size_t)i * V, pack<T>(o));
+        st_row(dxr + (size_t)i * V, pack<T>(o));
       }
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      xv[j] = xn[j];
+      dv[j] = dn[j];
     }
   }   // rows
-  if (w != nullptr) {
-    float* dst = dw_part + (size_t)blockIdx.x * D;
+  if (w == nullptr) return;
+
+  // push each float4 column of this group's part to the block that owns it
 #pragma unroll
-    for (int j = 0; j < C; ++j) {
-      const int i = lo + j * span;
-      if (i < nvec) {
+  for (int j = 0; j < C; ++j) {
+    const int i = lo + j * span;
+    if (i < nvec) {
 #pragma unroll
-        for (int k = 0; k < V; k += 4)
-          *reinterpret_cast<float4*>(dst + (size_t)i * V + k) =
-              make_float4(acc[j][k], acc[j][k + 1], acc[j][k + 2], acc[j][k + 3]);
+      for (int e = 0; e < V; e += 4) {
+        const int q = (i * V + e) / 4, owner = q / per;
+        push4(recv + (rank * groups + group) * per + (q - owner * per), &bar, (unsigned)owner,
+              make_float4(acc[j][e], acc[j][e + 1], acc[j][e + 2], acc[j][e + 3]));
       }
     }
   }
-}
-
-// dw[j] = sum over p of part[p][j], p in a fixed order: thread (tx, ty)
-// of a (32, kReduceRows) block adds p = ty, ty + kReduceRows, ... of
-// column blockIdx.x * 32 + tx, then the kReduceRows sums are added in ty
-// order.
-template <typename T>
-__global__ void __launch_bounds__(32 * kReduceRows) rmsnorm_dw_reduce(
-    const float* __restrict__ part, int P, int D, T* __restrict__ dw) {
-  __shared__ float sums[kReduceRows][33];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * 32 + tx;
-  float s = 0.f;
-  if (j < D) {
-#pragma unroll 4
-    for (int p = ty; p < P; p += kReduceRows) s += part[(size_t)p * D + j];
+  // slice `rank` of the cluster's part: its blocks' parts in rank order,
+  // each block's groups in order
+  mbar_wait(&bar, 0);
+  const int P = gridDim.x / ncl, p = blockIdx.x / ncl;
+  const int parts = (int)ncl * groups;
+  float4* part4 = reinterpret_cast<float4*>(dw_part);
+  for (int q = tid; q < q1 - q0; q += blockDim.x) {
+    float4 s = recv[q];
+    for (int b = 1; b < parts; ++b) s = add4(s, recv[b * per + q]);
+    part4[(size_t)p * Q + q0 + q] = s;
   }
-  sums[ty][tx] = s;
   __syncthreads();
-  if (ty == 0 && j < D) {
-    float t = 0.f;
-#pragma unroll
-    for (int q = 0; q < kReduceRows; ++q) t += sums[q][tx];
-    from_f(dw + j, t);
+  if (tid == 0) {     // release: the slice's row p; acquire: the other rows
+    int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(tickets + rank) : "memory");
+    last_s = prev == P - 1;
   }
+  __syncthreads();
+  if (!last_s) return;
+  // slice `rank` of dw: its P rows in a fixed order
+  for (int c0 = q0; c0 < q1; c0 += blockDim.x) {
+    const int n = min((int)blockDim.x, q1 - c0), sets = blockDim.x / n;
+    const int col = tid % n, set = tid / n;
+    if (set < sets) {
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int pp = set; pp < P; pp += kFinalBatch * sets) {
+        float4 v[kFinalBatch];   // a batch of rows in flight at once
+#pragma unroll
+        for (int b = 0; b < kFinalBatch; ++b)
+          if (pp + b * sets < P) v[b] = __ldcg(part4 + (size_t)(pp + b * sets) * Q + c0 + col);
+#pragma unroll
+        for (int b = 0; b < kFinalBatch; ++b)
+          if (pp + b * sets < P) s = add4(s, v[b]);
+      }
+      sets_s[set * n + col] = s;
+    }
+    __syncthreads();
+    if (tid < n) {
+      float4 s = sets_s[tid];
+      for (int k = 1; k < sets; ++k) s = add4(s, sets_s[k * n + tid]);
+      st_dw(dw + (size_t)(c0 + tid) * 4, s);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) tickets[rank] = 0;
 }
 
 template <typename T, int C>
 int launch_bwd_c(const void* x, const void* dy, const void* w, void* dx,
-                 void* dw, float* dw_part, int R, int D, float eps,
-                 int warps, int grid, cudaStream_t st) {
-  rmsnorm_bwd_kernel<T, C><<<grid, 32 * warps, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<const T*>(w), static_cast<T*>(dx), dw_part, R, D, eps);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0 || w == nullptr) return rc;
-  rmsnorm_dw_reduce<T><<<(D + 31) / 32, dim3(32, kReduceRows), 0, st>>>(
-      dw_part, grid, D, static_cast<T*>(dw));
+                 void* dw, void* dw_part, void* tickets, int R, int D,
+                 float eps, int warps, int groups, int grid, int cluster,
+                 cudaStream_t st) {
+  const auto kernel = rmsnorm_bwd_kernel<T, C>;
+  const int per = (D / 4 + cluster - 1) / cluster;
+  const size_t smem = w != nullptr ? (size_t)cluster * groups * per * sizeof(float4) : 0;
+  // once per instance: the most dynamic shared memory a launch asks of it
+  static const int set = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_max_smem<T>(C));
+  if (set != 0) return set;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(32 * warps * groups);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<const T*>(w), static_cast<T*>(dx), static_cast<float*>(dw_part),
+      static_cast<int*>(tickets), static_cast<T*>(dw), R, D, warps, eps);
+  if (rc != cudaSuccess) return (int)rc;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_bwd(const void* x, const void* dy, const void* w, void* dx,
-               void* dw, void* dw_part, int R, int D, float eps, int warps,
-               int chunks, int grid, cudaStream_t st) {
+               void* dw, void* dw_part, void* tickets, int R, int D, float eps,
+               int warps, int groups, int chunks, int grid, int cluster,
+               cudaStream_t st) {
   constexpr int V = Vec<T>::n;
   const auto misaligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 != 0;
   };
   if (D % V || misaligned(x) || misaligned(dy) || misaligned(dx))
     return (int)cudaErrorInvalidValue;
-  if (w != nullptr && (dw == nullptr || dw_part == nullptr || misaligned(w) ||
-                       misaligned(dw_part)))
+  if (w != nullptr && (dw == nullptr || dw_part == nullptr || tickets == nullptr ||
+                       misaligned(w) || misaligned(dw) || misaligned(dw_part)))
     return (int)cudaErrorInvalidValue;
-  if (chunks < 1 || chunks > kBwdMaxChunks || warps < 1 ||
-      warps > kBwdMaxWarps || grid < 1 || 32LL * warps * chunks < D / V)
+  if (chunks < 1 || chunks > kBwdMaxChunks || warps < 1 || groups < 1 ||
+      32LL * warps * groups > kBwdThreads ||
+      (warps > 1 && groups > 15) ||   // named barriers 1..15
+      cluster < 1 || cluster > kBwdMaxCluster || grid < 1 || grid % cluster ||
+      32LL * warps * chunks < D / V)
     return (int)cudaErrorInvalidValue;
-  float* part = static_cast<float*>(dw_part);
 #define NORM_BWD_LAUNCH(C)                                                   \
   case C:                                                                    \
-    return launch_bwd_c<T, C>(x, dy, w, dx, dw, part, R, D, eps, warps, grid, \
-                              st)
+    return launch_bwd_c<T, C>(x, dy, w, dx, dw, dw_part, tickets, R, D, eps, \
+                              warps, groups, grid, cluster, st)
   switch (chunks) {
     NORM_BWD_LAUNCH(1);
     NORM_BWD_LAUNCH(2);
     NORM_BWD_LAUNCH(3);
     NORM_BWD_LAUNCH(4);
+    NORM_BWD_LAUNCH(5);
+    NORM_BWD_LAUNCH(6);
+    NORM_BWD_LAUNCH(7);
+    NORM_BWD_LAUNCH(8);
   }
 #undef NORM_BWD_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T, int C>
+int occupancy_c(int threads, int smem, int cluster, int* out) {
+  const auto kernel = rmsnorm_bwd_kernel<T, C>;
+  cudaFuncAttributes fa;
+  int rc = (int)cudaFuncGetAttributes(&fa, kernel);
+  if (rc == 0)
+    rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   bwd_max_smem<T>(C));
+  if (rc == 0)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, smem);
+  if (rc != 0) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  rc = (int)cudaOccupancyMaxActiveClusters(out + 1, kernel, &cfg);
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  return rc;
+}
+
+template <typename T>
+int occupancy(int chunks, int threads, int smem, int cluster, int* out) {
+  switch (chunks) {
+    case 1: return occupancy_c<T, 1>(threads, smem, cluster, out);
+    case 2: return occupancy_c<T, 2>(threads, smem, cluster, out);
+    case 3: return occupancy_c<T, 3>(threads, smem, cluster, out);
+    case 4: return occupancy_c<T, 4>(threads, smem, cluster, out);
+    case 5: return occupancy_c<T, 5>(threads, smem, cluster, out);
+    case 6: return occupancy_c<T, 6>(threads, smem, cluster, out);
+    case 7: return occupancy_c<T, 7>(threads, smem, cluster, out);
+    case 8: return occupancy_c<T, 8>(threads, smem, cluster, out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// x, dy, dx: R x D contiguous; w, dw: D elements or both null; dw_part: an
-// f32 (grid, D) scratch buffer when w is given (the blocks' parts of dw).
-// D must be a multiple of 16 / sizeof(T) and every pointer 16-byte
-// aligned.  The plan (bwd_plan in kernels/rmsnorm/ops.py): `warps` warps
-// own a row, each lane `chunks` 16-byte chunks of it, `grid` blocks.
-// Launches on `stream` (two kernels when w is given); returns the
-// cudaError_t of the launches.
+// x, dy, dx: R x D contiguous; w, dw: D elements or both null; with w,
+// dw_part an f32 (grid / cluster, D) scratch (the clusters' parts of dw)
+// and tickets int32[cluster], all 0 (each launch leaves them so).  D
+// must be a multiple of 16 / sizeof(T) and every pointer 16-byte
+// aligned.  The plan (bwd_plan in kernels/rmsnorm/ops.py): a block of
+// `warps` warps owns a row, each lane `chunks` 16-byte chunks of it,
+// `grid` blocks in clusters of `cluster`.  Launches one kernel on
+// `stream`; returns the cudaError_t of the launch.
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* dy,
                                   const void* w, void* dx, void* dw,
-                                  void* dw_part, int R, int D, float eps,
-                                  int is_bf16, int warps, int chunks,
-                                  int grid, void* stream) {
+                                  void* dw_part, void* tickets, int R, int D,
+                                  float eps, int is_bf16, int warps,
+                                  int groups, int chunks, int grid,
+                                  int cluster, void* stream) {
   if (R < 1 || D < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_bwd<__nv_bfloat16>(x, dy, w, dx, dw, dw_part, R, D, eps,
-                                     warps, chunks, grid, st);
-  return launch_bwd<float>(x, dy, w, dx, dw, dw_part, R, D, eps, warps,
-                           chunks, grid, st);
+    return launch_bwd<__nv_bfloat16>(x, dy, w, dx, dw, dw_part, tickets, R, D,
+                                     eps, warps, groups, chunks, grid, cluster, st);
+  return launch_bwd<float>(x, dy, w, dx, dw, dw_part, tickets, R, D, eps,
+                           warps, groups, chunks, grid, cluster, st);
+}
+
+// What the card makes of one backward instance (the plan's and the
+// probe's): out[0] blocks an SM at `threads` threads and `smem` dynamic
+// shared bytes, out[1] clusters of `cluster` blocks resident at once,
+// out[2] registers a thread, out[3] local (spill) bytes a thread.
+extern "C" int rmsnorm_bwd_occupancy(int is_bf16, int chunks, int threads,
+                                     int smem, int cluster, int* out) {
+  if (is_bf16) return occupancy<__nv_bfloat16>(chunks, threads, smem, cluster, out);
+  return occupancy<float>(chunks, threads, smem, cluster, out);
 }

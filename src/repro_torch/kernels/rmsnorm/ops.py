@@ -7,9 +7,10 @@ launches and ``bwd_launches`` backward ones (one per call that reached
 the card; a call recorded into a CUDA graph counts once, at capture).
 The kernels launch on the current stream and the wrappers allocate only
 the outputs and the backward's scratch, so a call can be captured into a
-CUDA graph.  How the forward spreads rows over warps, blocks and the
-grid is ``norm_plan``'s, the backward's ``bwd_plan``'s, from the shapes
-and the SM count.
+CUDA graph (the backward's tickets, one set per device, are allocated
+at its first call with w).  How the forward spreads rows over warps,
+blocks and the grid is ``norm_plan``'s, the backward's ``bwd_plan``'s,
+from the shapes and the SM count.
 
 ``rmsnorm`` is differentiable: under grad mode, when x or w requires
 grad, it runs through ``RMSNormFunction`` (the forward kernel, and the
@@ -36,12 +37,19 @@ PROMPT_CHUNKS = 5     # the most a lane holds on prompt rows
 PROMPT_THREADS = 256  # threads of a block of prompt rows
 BLOCKS_PER_SM = 2     # prompt blocks the grid puts on each SM
 
-BWD_MAX_CHUNKS = 4    # 16-byte chunks of a row a backward lane holds
-BWD_MAX_WARPS = 16    # warps of a backward row (kBwdMaxWarps)
-BWD_BLOCKS_PER_SM = 2  # backward blocks the grid puts on each SM
+BWD_THREADS = 256     # most threads of a backward block (kBwdThreads)
+BWD_MAX_CHUNKS = 8    # 16-byte chunks of a row a backward lane holds
+BWD_MAX_WARPS = 8     # warps of a backward row
+BWD_CHUNKS = 2        # the chunks a backward lane holds where 8 warps allow it
+BWD_MAX_CLUSTER = 8   # blocks of a cluster (kBwdMaxCluster): the tickets
+BWD_CLUSTER = 8       # the blocks of a cluster a plan takes
+# (BWD_CHUNKS and BWD_CLUSTER: the fastest of the probe's sweep over 2, 4
+# and 8 chunks and clusters of 4 and 8 at R 2048 x D 1536 / 2048 / 3584
+# bf16: PERF.md, row 5b)
 
 launches = 0
 bwd_launches = 0
+_tickets = {}         # device index -> int32 (BWD_MAX_CLUSTER,), all 0 between calls
 
 
 class NormPlan(NamedTuple):
@@ -116,9 +124,11 @@ def _lib() -> ctypes.CDLL:
     lib.rmsnorm_launch.argtypes = [p, ctypes.c_longlong, p, p, i, i,
                                    ctypes.c_float, i, i, i, i, i, p]
     lib.rmsnorm_launch.restype = i
-    lib.rmsnorm_bwd_launch.argtypes = [p, p, p, p, p, p, i, i, ctypes.c_float,
-                                       i, i, i, i, p]
+    lib.rmsnorm_bwd_launch.argtypes = [p, p, p, p, p, p, p, i, i, ctypes.c_float,
+                                       i, i, i, i, i, i, p]
     lib.rmsnorm_bwd_launch.restype = i
+    lib.rmsnorm_bwd_occupancy.argtypes = [i, i, i, i, i, p]
+    lib.rmsnorm_bwd_occupancy.restype = i
     return lib
 
 
@@ -204,23 +214,133 @@ def _forward(x: torch.Tensor, w: Optional[torch.Tensor],
     return out
 
 
+class BwdPlan(NamedTuple):
+    warps: int     # warps that own one row
+    groups: int    # rows a block holds at once, one per warp group
+    chunks: int    # 16-byte chunks of its row each lane holds
+    grid: int      # blocks, a multiple of cluster; block b's group g takes
+    #                rows b * groups + g + k * grid * groups
+    cluster: int   # blocks of a cluster; block k of it adds slice k of dw's
+    #                columns over the cluster's groups, pushed to its shared
+    #                memory
+
+
+def bwd_blocks_per_sm(chunks: int) -> int:
+    """Backward blocks an SM the kernel's registers allow at ``chunks``
+    chunks a lane (its ``bwd_min_blocks``)."""
+    return 2 if chunks <= 4 else 1
+
+
 @functools.lru_cache(maxsize=1024)
-def bwd_plan(R: int, D: int, itemsize: int, n_sm: int) -> Tuple[int, int, int]:
-    """(warps, chunks, grid) of the backward kernel for R rows of D
-    elements of ``itemsize`` bytes on n_sm SMs: a block of ``warps``
-    warps owns one row at a time, each lane holding at most 2 of its
-    16-byte chunks where 16 warps allow it (at most BWD_MAX_CHUNKS), and
-    the grid has at most BWD_BLOCKS_PER_SM blocks an SM, each walking
-    rows ``grid`` apart.  Raises ValueError for a row of more than 2048
-    chunks (D 16384 bf16, 8192 f32)."""
+def bwd_plan(R: int, D: int, itemsize: int, n_sm: int, chunks: Optional[int] = None,
+             blocks_per_sm: Optional[int] = None, cluster: int = BWD_CLUSTER,
+             max_clusters: Optional[int] = None) -> BwdPlan:
+    """How the backward kernel covers R rows of D elements of ``itemsize``
+    bytes on n_sm SMs: the fewest warps a row (at most BWD_MAX_WARPS)
+    that hold it at ``chunks`` (default BWD_CHUNKS) 16-byte chunks a lane,
+    more chunks (at most BWD_MAX_CHUNKS) past 8 warps; as many groups as
+    BWD_THREADS threads hold; a persistent grid of at most
+    ``blocks_per_sm`` blocks an SM (default: what the registers allow at
+    those chunks) in clusters of ``cluster``, and at most
+    ``max_clusters`` clusters (what the card holds at once, which its
+    GPCs may cut below n_sm * blocks_per_sm / cluster: ``card_bwd_plan``).
+    The other overrides are the probe's sweep.  Raises ValueError for a
+    row of more than 2048 chunks (D 16384 bf16, 8192 f32) or a cluster
+    past BWD_MAX_CLUSTER."""
     nvec = D * itemsize // 16
-    warps = min(BWD_MAX_WARPS, max(1, math.ceil(nvec / 64)))
-    chunks = math.ceil(nvec / (32 * warps))
-    if chunks > BWD_MAX_CHUNKS:
+    warps = min(BWD_MAX_WARPS, max(1, math.ceil(nvec / (32 * (chunks or BWD_CHUNKS)))))
+    c = math.ceil(nvec / (32 * warps))
+    if c > BWD_MAX_CHUNKS:
         raise ValueError(f"rows of {nvec} 16-byte chunks do not fit "
                          f"{BWD_MAX_WARPS} warps of at most {BWD_MAX_CHUNKS} "
                          "chunks a lane")
-    return warps, chunks, min(R, n_sm * BWD_BLOCKS_PER_SM)
+    if not 1 <= cluster <= BWD_MAX_CLUSTER:
+        raise ValueError(f"clusters of 1 to {BWD_MAX_CLUSTER} blocks; got {cluster}")
+    groups = BWD_THREADS // (32 * warps)
+    per_sm = blocks_per_sm or bwd_blocks_per_sm(c)
+    fit = n_sm * per_sm // cluster
+    if max_clusters is not None:
+        fit = min(fit, max_clusters)
+    clusters = max(1, min(math.ceil(math.ceil(R / groups) / cluster), fit))
+    return BwdPlan(warps, groups, c, clusters * cluster, cluster)
+
+
+@functools.lru_cache(maxsize=256)
+def _occupancy(index: int, is_bf16: int, chunks: int, threads: int, smem: int,
+               cluster: int) -> Tuple[int, int, int, int]:
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(index):
+        _build.check(_lib().rmsnorm_bwd_occupancy(is_bf16, chunks, threads, smem,
+                                                  cluster, out), "rmsnorm_bwd_occupancy")
+    return tuple(out)
+
+
+def card_bwd_plan(R: int, D: int, itemsize: int, index: int, with_w: bool = True) -> BwdPlan:
+    """``bwd_plan`` on CUDA device ``index``: its SM count, the blocks an
+    SM and the clusters the card holds at once for the plan's kernel
+    instance (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    ``cudaOccupancyMaxActiveClusters``), so no cluster waits for a second
+    wave.  Without w no block writes to another's shared memory:
+    clusters of 1."""
+    n_sm = _build.sm_count(index)
+    over = {} if with_w else {"cluster": 1}
+    plan = bwd_plan(R, D, itemsize, n_sm, **over)
+    blocks, held, _, _ = _occupancy(index, int(itemsize == 2), plan.chunks,
+                                    32 * plan.warps * plan.groups,
+                                    bwd_smem(plan, D) if with_w else 0, plan.cluster)
+    return bwd_plan(R, D, itemsize, n_sm, blocks_per_sm=blocks, max_clusters=held, **over)
+
+
+def bwd_smem(plan: BwdPlan, D: int) -> int:
+    """Dynamic shared memory of a backward block with w: the parts of its
+    slice of dw that the cluster's groups push to it, cluster x groups x
+    ceil(D / 4 / cluster) float4."""
+    return plan.cluster * plan.groups * math.ceil(D // 4 / plan.cluster) * 16
+
+
+def bwd_rows_of(plan: BwdPlan, R: int, block: int, group: int) -> range:
+    """The rows group ``group`` of block ``block`` differentiates, in the
+    order the kernel walks them (and adds them into its part of dw)."""
+    return range(block * plan.groups + group, R, plan.grid * plan.groups)
+
+
+def bwd_chunks_of(plan: BwdPlan, nvec: int, lane: int) -> list:
+    """The 16-byte chunks of a row that lane ``lane`` of its group holds."""
+    span = 32 * plan.warps
+    return [lane + j * span for j in range(plan.chunks) if lane + j * span < nvec]
+
+
+def dw_sums(plan: BwdPlan, D: int):
+    """The kernel's order of adding dw, by float4 columns (column q holds
+    elements 4q..4q+3): yields (columns, terms) for each run of columns
+    that the last block of a cluster rank's slice adds alike, terms the
+    (block, group) parts in the order they are added: thread sets over
+    the clusters (cluster p in set p mod sets), within a cluster its
+    blocks in rank order, within a block its groups in order."""
+    threads = 32 * plan.warps * plan.groups
+    Q, n_cl = D // 4, plan.grid // plan.cluster
+    per = math.ceil(Q / plan.cluster)
+    for rank in range(plan.cluster):
+        q0 = min(Q, rank * per)
+        q1 = min(Q, q0 + per)
+        for c0 in range(q0, q1, threads):
+            n = min(threads, q1 - c0)
+            sets = threads // n
+            yield range(c0, c0 + n), [(p * plan.cluster + b, g)
+                                      for s in range(sets) for p in range(s, n_cl, sets)
+                                      for b in range(plan.cluster) for g in range(plan.groups)]
+
+
+def bwd_occupancy(plan: BwdPlan, itemsize: int, D: int) -> dict:
+    """What the card makes of ``plan``'s kernel instance with w: blocks an
+    SM, clusters resident at once, registers and local (spill) bytes a
+    thread (``rmsnorm_bwd_occupancy``; the probe's report)."""
+    threads = 32 * plan.warps * plan.groups
+    blocks, held, regs, local = _occupancy(
+        torch.cuda.current_device(), int(itemsize == 2), plan.chunks, threads,
+        bwd_smem(plan, D), plan.cluster)
+    return dict(blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32, max_clusters=held,
+                registers=regs, local_bytes=local)
 
 
 def rmsnorm_bwd(x: torch.Tensor, w: Optional[torch.Tensor], dy: torch.Tensor,
@@ -228,10 +348,14 @@ def rmsnorm_bwd(x: torch.Tensor, w: Optional[torch.Tensor], dy: torch.Tensor,
     """The gradient of ``rmsnorm`` at x (..., D), w (D,) or None, for the
     output's gradient dy (x's shape): (dx in x's shape and dtype, dw in
     w's dtype or None), computed in f32 (``ref.rmsnorm_bwd_ref``'s
-    formulas).  On the card: the backward kernel, then (with w) the
-    fixed-order sum of its blocks' parts of dw; no atomics, so repeated
-    calls give the same bits.  x and dy are read contiguous (copied
-    first when they are not).  DTensors run on their local rows; dw of
+    formulas).  On the card: one launch of the backward kernel
+    (``card_bwd_plan``), whose blocks add their parts of dw in a fixed
+    order (pushed into each cluster's shared memory, then the last block
+    of each slice of columns by ticket); no atomic on a value, so
+    repeated calls give the same bits.  The first call with w on a device
+    allocates the kernel's tickets and must not be under CUDA-graph
+    capture.  x and dy are read contiguous (copied first when they are
+    not).  DTensors run on their local rows; dw of
     rows split over a mesh dim is the sum of the ranks' parts, returned
     ``Partial()`` there."""
     if _dt.any_dtensor(x, w, dy):
@@ -265,17 +389,21 @@ def rmsnorm_bwd(x: torch.Tensor, w: Optional[torch.Tensor], dy: torch.Tensor,
     if D % per16 or any(t.data_ptr() % 16 for t in (x2, dy2)):
         raise ValueError(f"kernel takes 16-byte aligned rows: D a multiple of "
                          f"{per16}, x and dy 16-byte aligned; got D={D}")
-    warps, chunks, grid = bwd_plan(R, D, x.element_size(),
-                                   _build.sm_count(x.device.index))
-    part = (None if w is None else
-            torch.empty((grid, D), dtype=torch.float32, device=x.device))
+    plan = card_bwd_plan(R, D, x.element_size(), x.device.index, w is not None)
+    part = tickets = None
+    if w is not None:   # the clusters' parts of dw, and the slices' tickets
+        part = torch.empty((plan.grid // plan.cluster, D), dtype=torch.float32,
+                           device=x.device)
+        tickets = _build.ticket_buffer(_tickets, x.device, BWD_MAX_CLUSTER,
+                                       "rmsnorm_bwd")
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.rmsnorm_bwd_launch(
             x2.data_ptr(), dy2.data_ptr(), None if w is None else w.data_ptr(),
             dx.data_ptr(), None if dw is None else dw.data_ptr(),
-            None if part is None else part.data_ptr(), R, D, eps,
-            int(x.dtype == torch.bfloat16), warps, chunks, grid,
+            None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            R, D, eps, int(x.dtype == torch.bfloat16), *plan,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "rmsnorm_bwd")
     global bwd_launches

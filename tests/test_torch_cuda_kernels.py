@@ -829,14 +829,32 @@ def _bwd_ok(out, want, dtype, floor):
     return bool(torch.all((o - w).abs() <= w.abs() * 2 ** -7 + floor * scale))
 
 
+def _groups_rows(spec, D, dtype, dev):
+    """R from ``spec``: an int, or (k, delta) for k times the row groups
+    the card's plan runs at once (``card_bwd_plan``'s grid x groups),
+    plus delta: the persistent grid's edges."""
+    if isinstance(spec, int):
+        return spec
+    k, delta = spec
+    size = torch.empty((), dtype=dtype).element_size()
+    plan = rms_ops.card_bwd_plan(4096, D, size, dev.index or 0)
+    return k * plan.grid * plan.groups + delta
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("parametric", [True, False])
 @pytest.mark.parametrize("R,D", [(1, 2048), (7, 1536), (2048, 2048), (4096, 3584),
-                                 (2048, 5120), (3, 128), (5, 8192)])
+                                 (2048, 5120), (3, 128), (5, 8192),
+                                 ((1, -1), 2048), ((1, 1), 2048), ((2, -1), 1536),
+                                 ((2, 1), 2560), ((1, 1), 4096), (2048, 1536),
+                                 (2048, 2560), (1000, 4096), (2048, 8192)])
 def test_rmsnorm_bwd(cuda, dtype, parametric, R, D):
     """Kernel 5's backward against ``rmsnorm_bwd_ref`` at the training
     shapes (qwen2.5-3b D 2048 at R 2048), a decode row, ragged rows, the
-    reduced width and the widest f32 row; two calls bit-equal."""
+    reduced width and the widest f32 row; R one below and above once and
+    twice the row groups the persistent grid holds; D 1536, 2560, 4096 and
+    8192 (bf16 and f32); two calls bit-equal."""
+    R = _groups_rows(R, D, dtype, cuda)
     g = torch.Generator(device=cuda).manual_seed(R + D)
     x = (3 * torch.randn((R, D), generator=g, device=cuda)).to(dtype)
     dy = torch.randn((R, D), generator=g, device=cuda).to(dtype)
@@ -892,6 +910,40 @@ def test_rmsnorm_bwd_graph_replay_and_function(cuda, dtype):
         out = rms_ops.rmsnorm(xr, wr)
     assert out.grad_fn is None
     assert (rms_ops.launches - f0, rms_ops.bwd_launches - b0) == (2, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D", [(2048, 2048), (7, 1536), (4097, 3584)])
+def test_rmsnorm_bwd_graph_replays_equal_eager_calls(cuda, dtype, R, D):
+    """One captured backward (one launch) replayed three times with new
+    x and dy: dx and dw bit-equal to eager calls on the same inputs each
+    time, and the kernel's tickets back at 0 after each replay, so the
+    last block of each slice of dw is found afresh."""
+    g = torch.Generator(device=cuda).manual_seed(R + 3 * D)
+    w = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(dtype)
+    sx = (3 * torch.randn((R, D), generator=g, device=cuda)).to(dtype)
+    sdy = torch.randn((R, D), generator=g, device=cuda).to(dtype)
+    rms_ops.rmsnorm_bwd(sx, w, sdy)   # allocates the tickets, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = rms_ops.bwd_launches
+    with torch.cuda.graph(graph):
+        dx, dw = rms_ops.rmsnorm_bwd(sx, w, sdy)
+    assert rms_ops.bwd_launches == before + 1
+    tickets = rms_ops._tickets[cuda.index or 0]
+    for _ in range(3):
+        x = (3 * torch.randn((R, D), generator=g, device=cuda)).to(dtype)
+        dy = torch.randn((R, D), generator=g, device=cuda).to(dtype)
+        sx.copy_(x)
+        sdy.copy_(dy)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert not bool(tickets.any())
+        want_dx, want_dw = rms_ops.rmsnorm_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, want_dx) and torch.equal(dw, want_dw)
+        assert not bool(tickets.any())
+        assert _bwd_ok(dw, rms_ops.ref.rmsnorm_bwd_ref(x, w, dy)[1], dtype, 1e-3)
 
 
 def _ssd_case(dev, B, H, P, N, G, dtype, seed, strided=False):

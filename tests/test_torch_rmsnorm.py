@@ -118,3 +118,66 @@ def test_norm_plan_refuses_rows_it_cannot_hold():
         ops.norm_plan(1, 16384, 4, 132)         # 4096 chunks: past 32 warps of 2
     with pytest.raises(ValueError, match="do not fit"):
         ops.norm_plan(2048, 5120, 2, 132, warps_per_row=1)   # 20 chunks a lane
+
+
+# kernel 5's backward: chip_smoke phase 5b's row counts and ragged ones,
+# and every width from 64 to the widest row the kernel holds
+BWD_ROWS = (1, 7, 2048, 4096, 4097)
+BWD_WIDTHS = [(D, 2) for D in (64, 128, 1536, 2048, 2560, 3584, 4096, 5120, 8192, 16384)] + \
+    [(D, 4) for D in (64, 128, 1536, 2048, 2560, 3584, 4096, 5120, 8192)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 16])
+@pytest.mark.parametrize("D,itemsize", BWD_WIDTHS)
+@pytest.mark.parametrize("R", BWD_ROWS)
+def test_bwd_plan_covers_each_row_and_chunk_once(R, D, itemsize, n_sm):
+    """The backward kernel's plan, as the kernel walks it: every row of R
+    by exactly one warp group, every 16-byte chunk of a row by exactly
+    one lane of the group; blocks, warps, chunks, clusters and shared
+    memory within the kernel's limits; and the dw reduction's order adds
+    every (block, group) part into every column exactly once."""
+    plan = ops.bwd_plan(R, D, itemsize, n_sm)
+    threads = 32 * plan.warps * plan.groups
+    assert threads <= ops.BWD_THREADS and 1 <= plan.warps <= ops.BWD_MAX_WARPS
+    assert 1 <= plan.chunks <= ops.BWD_MAX_CHUNKS and plan.groups >= 1
+    assert plan.warps == 1 or plan.groups <= 15          # named barriers 1..15
+    assert 1 <= plan.cluster <= ops.BWD_MAX_CLUSTER and plan.grid % plan.cluster == 0
+    per_sm = ops.bwd_blocks_per_sm(plan.chunks)
+    assert plan.grid <= max(plan.cluster, n_sm * per_sm)  # one wave: a persistent grid
+    nvec = D * itemsize // 16
+    # the parts of a slice of dw the cluster's groups push to a block: within
+    # what the kernel asks for (bwd_max_smem) and what a block may have
+    most = (ops.BWD_THREADS * plan.chunks * (16 // itemsize)
+            + 4 * ops.BWD_MAX_CLUSTER * ops.BWD_THREADS // 32) * 4
+    assert ops.bwd_smem(plan, D) <= min(most, 227 * 1024)
+    rows = [r for b in range(plan.grid) for g in range(plan.groups)
+            for r in ops.bwd_rows_of(plan, R, b, g)]
+    assert sorted(rows) == list(range(R))
+    chunks = [c for lane in range(32 * plan.warps) for c in ops.bwd_chunks_of(plan, nvec, lane)]
+    assert sorted(chunks) == list(range(nvec))
+    parts = sorted((b, g) for b in range(plan.grid) for g in range(plan.groups))
+    columns = []
+    for cols, terms in ops.dw_sums(plan, D):
+        columns += list(cols)
+        assert sorted(terms) == parts
+    assert sorted(columns) == list(range(D // 4))
+
+
+def test_bwd_plan_refuses_rows_it_cannot_hold():
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.bwd_plan(1, 16384, 4, 132)          # 4096 chunks: past 8 warps of 8
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.bwd_plan(2048, 32768, 2, 132)
+    with pytest.raises(ValueError, match="clusters of 1 to"):
+        ops.bwd_plan(2048, 2048, 2, 132, cluster=16)   # past the tickets
+
+
+def test_bwd_plan_keeps_to_the_clusters_the_card_holds():
+    """A card whose GPCs hold fewer clusters than n_sm * blocks / cluster
+    gets no more clusters than it holds; a short input no more than its
+    rows need."""
+    full = ops.bwd_plan(2048, 2048, 2, 132)
+    held = ops.bwd_plan(2048, 2048, 2, 132, max_clusters=30)
+    assert held.grid == 30 * held.cluster < full.grid
+    assert held._replace(grid=full.grid) == full
+    assert ops.bwd_plan(3, 2048, 2, 132, max_clusters=30).grid == full.cluster
