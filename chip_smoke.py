@@ -141,6 +141,24 @@ Phases, in order; each raises on failure and nothing catches:
     which must launch the int4 kernel 7 x 28 times; the step's device
     time under torch.profiler (as in phase 10), which must show 7 x 28
     GEMV kernels per step and no split-K reduce kernel.
+10c. stochastic sampling inside the captured graphs (temperature 0.8,
+    top_k 50) at qwen2.5-7b full width (28 layers, bf16, random weights
+    drawn on the card), prompt 2048, 32 new tokens.  (A) the engine's
+    fused loop: three calls (seed 11 captured, 11 replayed, 12 replayed)
+    each bit-equal to uncaptured ``decode_steps`` from that seed (a
+    prefill, the first draw, the N-1 steps, one generator), the two
+    seeds' streams different, kernels 1 and 5 launched by the replays
+    28 and 57 times a step.  (B) the same on ``int4_fused``, kernel 3
+    196 times a step in the replays.  For both: the fused loop's ms a
+    token and the streamed loop's p50 step, greedy and stochastic, and
+    the stochastic tok/s of each loop; the sampling ops of a step
+    (``sample`` on a (1, V) logits row) by kernel name, profiler device
+    µs.  (C) phase 12's 8 sessions through 4 paged slots (bf16 KV) at
+    K=4 captured and uncaptured from one seed: equal event logs and
+    generator states; then K=1; every session ends with its budget, the
+    pools balance, kernel 2 runs 28 times a device step in the replays;
+    tok/s at K=4 and K=1.  Its numbers go on a ``{"sampling": ...}``
+    line.
 12. the paged serving path at full width: qwen2.5-7b, 28 layers, bf16,
     8 sessions (prompts 2048+, 32+ new tokens) through 4 paged slots,
     page 16, prefill chunk 512, through ``generate_continuous`` twice:
@@ -296,7 +314,7 @@ Phases, in order; each raises on failure and nothing catches:
     row adds the M=2048 sums (``prefill_*``) and the prefill's launches
     and walls.  ``rmsnorm_bwd`` (the backward, port-only) counts phase
     18c's and 19c's launches; 19b and 19c's DTensor arm are paths of
-    their own in ``launches_by_path``.  ``dequantize`` counts phase 17's
+    their own in ``launches_by_path``, as are phase 10c's sampled paths.  ``dequantize`` counts phase 17's
     int4 moe cell and phase 21's three dequantising 7b paths (whose
     int4_fused path adds to kernel 3's row).
 23. last line: ``{"ok": true, "device": {...}}``.
@@ -307,7 +325,8 @@ runs phases 1-6 (and 5b, 6c) only and prints the kernels line (launches null) wi
 the ``ok`` line: the quick call for tuning a kernel.  ``--only families``
 runs phases 1, 9c and 17 only, ``--only train`` phases 1, 5b and 18,
 ``--only dist`` phases 1 and 19, ``--only analysis`` phases 1 and 20,
-``--only examples`` phases 1 and 21 (no kernels line, no ``ok`` line).
+``--only examples`` phases 1 and 21, ``--only sampling`` phases 1 and
+10c (no kernels line, no ``ok`` line).
 Every phase prints its name on a line of its own before it starts.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -378,8 +397,11 @@ class Timer:
         launch and the timer's own cost."""
         return sum(self.device_split_us(fn, iters).values()) or float("nan")
 
-    def device_split_us(self, fn, iters=20) -> dict:
-        """As ``device_us``, by kernel: {kernel name: device us per call}."""
+    def device_split_us(self, fn, iters=20, once=None) -> dict:
+        """As ``device_us``, by kernel: {kernel name: device us per call}.
+        The calls recorded are counted by the kernel launched most often,
+        or with ``once`` by the kernel whose name holds it (one launch a
+        call, where ``fn`` launches some kernels more than once)."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
@@ -390,7 +412,8 @@ class Timer:
             torch.cuda.synchronize()
         seen = [e for e in prof.key_averages() if e.self_device_time_total > 0
                 and "fill" not in e.key.lower() and "memset" not in e.key.lower()]
-        calls = max((e.count for e in seen), default=0)   # the calls it recorded
+        calls = max((e.count for e in seen if once is None or once in e.key),
+                    default=0)                            # the calls it recorded
         return {e.key: e.self_device_time_total / calls for e in seen} if calls else {}
 
     def back_to_back_us(self, calls, reps=7) -> float:
@@ -1569,6 +1592,232 @@ def check_attention_kernels(kernels, per_step, where):
     if mma != per_step or pair:
         raise AssertionError(f"{where}: kernel 1 was not one decode_attention_mma "
                              "launch per attention call")
+
+
+# ---------------------------------------------------------------- phase 10c
+SAMPLE_T, SAMPLE_K, SEEDS = 0.8, 50, (11, 12)
+
+
+def plain_sampled(engine, batch, max_len, seed):
+    """Uncaptured stochastic tokens (1, NEW): a prefill, the first draw,
+    then ``Model.decode_steps``, all from one generator seeded with
+    ``seed``: the calls the fused loop makes, as plain calls."""
+    from repro_torch.serving.sampling import sample
+    with torch.inference_mode():
+        logits, cache = engine.prefill(batch, max_len)
+        gen = torch.Generator(device=engine.device).manual_seed(seed)
+        tok = sample(logits[:, -1], gen, temperature=SAMPLE_T, top_k=SAMPLE_K)
+        toks, _ = engine.model.decode_steps(
+            engine.params, cache, tok[:, None], gen, horizon=NEW - 1,
+            temperature=SAMPLE_T, top_k=SAMPLE_K)
+        out = torch.cat([tok[:, None], toks], dim=1)
+    del cache
+    return out
+
+
+def fused_ms_per_token(engine, batch, max_len, reps=5, **kw):
+    """Median over ``reps`` fused calls of the loop's wall a token (one
+    replay of NEW - 1 steps, synchronised; the graph captured before)."""
+    return statistics.median(
+        1e3 / engine.generate_fused(batch, max_len=max_len, n_new=NEW, **kw).tokens_per_s
+        for _ in range(reps))
+
+
+def streamed_p50(engine, batch, max_len, **kw):
+    """A warm-up streamed request, an untimed one (its tok/s: no sync
+    between steps) and two timed ones (a sync after each step): (p50 ms
+    a step, replay plus sampling; the untimed tok/s; its tokens)."""
+    engine.generate_streamed(batch, max_len=max_len, n_new=NEW, **kw)
+    run = engine.generate_streamed(batch, max_len=max_len, n_new=NEW, **kw)
+    timed = [engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True, **kw)
+             for _ in range(2)]
+    steps = timed[0].step_times_s + timed[1].step_times_s
+    return statistics.median(steps) * 1e3, run.tokens_per_s, run.tokens
+
+
+def sampled_batch1(engine, batch, max_len, label, per_step):
+    """A (bf16) and B (int4_fused): the fused loop at temperature 0.8,
+    top_k 50, captured at its first call and replayed at its second,
+    bit-equal to uncaptured ``decode_steps`` from the same seed; a second
+    seed draws another stream.  ``per_step``: {kernel: launches a decode
+    step} that the replays must make.  Then greedy against stochastic:
+    the fused loop's ms a token and the streamed loop's p50 step."""
+    from repro_torch.core import dispatch
+    want = {s: plain_sampled(engine, batch, max_len, s) for s in SEEDS}
+    if torch.equal(want[SEEDS[0]], want[SEEDS[1]]):
+        raise AssertionError(f"{label}: seeds {SEEDS} drew one stream uncaptured")
+    kw = dict(temperature=SAMPLE_T, top_k=SAMPLE_K)
+    order = (SEEDS[0], SEEDS[0], SEEDS[1])    # capture, replay, replay reseeded
+    zero_counts()
+    runs = [engine.generate_fused(batch, max_len=max_len, n_new=NEW, seed=s, **kw)
+            for s in order]
+    counts = launched()
+    replayed = dict(dispatch.replay_launches)
+    for i, (r, s) in enumerate(zip(runs, order)):
+        if not torch.equal(r.tokens, want[s]):
+            raise AssertionError(
+                f"{label}: fused call {i} (seed {s}) drew {r.tokens.tolist()}, "
+                f"uncaptured decode_steps {want[s].tolist()}")
+    steps = NEW - 1
+    log(f"  {label}: fused loop at temperature {SAMPLE_T}, top_k {SAMPLE_K}: "
+        f"3 calls (seed {order[0]} captured, {order[1]} replayed, {order[2]} "
+        f"replayed) bit-equal to uncaptured decode_steps from each seed; "
+        f"launched {counts}; by the 2 replays {replayed}")
+    for kernel, n in per_step.items():
+        if replayed.get(kernel, 0) != 2 * steps * n:
+            raise AssertionError(f"{label}: the replays launched {kernel} "
+                                 f"{replayed.get(kernel, 0)} times, want {n} x "
+                                 f"{steps} steps x 2")
+    fused = {"stochastic": fused_ms_per_token(engine, batch, max_len, seed=SEEDS[0], **kw)}
+    engine.generate_fused(batch, max_len=max_len, n_new=NEW)       # greedy capture
+    fused["greedy"] = fused_ms_per_token(engine, batch, max_len)
+    s_greedy, tps_greedy, _ = streamed_p50(engine, batch, max_len)
+    s_sto, tps_sto, s_tokens = streamed_p50(engine, batch, max_len, seed=SEEDS[0], **kw)
+    same = bool(torch.equal(s_tokens, want[SEEDS[0]]))
+    out = dict(fused_equal_uncaptured=True, seeds_differ=True,
+               fused_ms_per_token=fused,
+               streamed_p50_ms={"greedy": s_greedy, "stochastic": s_sto},
+               tok_s={"fused_stochastic": 1e3 / fused["stochastic"],
+                      "streamed_stochastic": tps_sto, "streamed_greedy": tps_greedy},
+               streamed_equal_fused=same,
+               replayed_per_step={k: replayed.get(k, 0) / (2 * steps) for k in per_step})
+    log(f"    fused ms a token: greedy {fused['greedy']:.4f}, stochastic "
+        f"{fused['stochastic']:.4f} (median of 5); streamed p50 step (synchronised "
+        f"after each): greedy {s_greedy:.4f}, stochastic {s_sto:.4f} ms (n=62); "
+        f"stochastic tok/s (no sync between steps) streamed {tps_sto:.2f}, fused "
+        f"{1e3 / fused['stochastic']:.2f}; streamed stochastic tokens equal the "
+        f"fused loop's: {same}")
+    return counts, out
+
+
+def sample_ops(engine, batch, max_len, dev):
+    """The sampling ops of one fused step on their own: ``sample`` on the
+    last prefill row (1, V), stochastic and greedy; profiler device µs by
+    kernel name (L2 flushed) and the Timer's ms."""
+    from repro_torch.serving.sampling import sample
+    timer = Timer(dev)
+    with torch.inference_mode():
+        logits, cache = engine.prefill(batch, max_len)
+        row = logits[:, -1].clone()
+        del cache
+        gen = torch.Generator(device=dev).manual_seed(0)
+        # the sort launches its radix pass kernel once a digit; argmax once
+        split = timer.device_split_us(
+            lambda: sample(row, gen, temperature=SAMPLE_T, top_k=SAMPLE_K),
+            once="ArgMaxOps")
+        greedy = timer.device_split_us(lambda: sample(row), once="ArgMaxOps")
+        ms = timer(lambda: sample(row, gen, temperature=SAMPLE_T, top_k=SAMPLE_K))
+        ms_greedy = timer(lambda: sample(row))
+    del timer
+    out = dict(row=[list(row.shape), str(row.dtype)], device_us=split,
+               device_us_total=sum(split.values()),
+               greedy_device_us_total=sum(greedy.values()), ms=ms, greedy_ms=ms_greedy)
+    log(f"  sampling ops on a {tuple(row.shape)} {row.dtype} row: stochastic "
+        f"{out['device_us_total']:.2f} device µs over {len(split)} kernel names "
+        f"({ms:.4f} ms by events), greedy {out['greedy_device_us_total']:.2f} µs "
+        f"({ms_greedy:.4f} ms):")
+    for name, us in sorted(split.items(), key=lambda kv: -kv[1]):
+        log(f"    {us:8.2f} µs  {name[:100]}")
+    return out
+
+
+def sampled_paged(dev, model, params):
+    """C: phase 12's 8 sessions through 4 paged slots (bf16 KV, page 16,
+    chunk 512) at temperature 0.8, top_k 50, one seed: K=4 captured, K=4
+    uncaptured (equal event logs, the generator left where it was), K=1
+    captured (sampling outside the step graph).  Every session ends with
+    its budget, the pools balance, and the K=4 replays launch kernel 2
+    28 times a device step."""
+    from repro_torch.launch.serve import mixed_requests
+    from repro_torch.serving import SlotScheduler, programs
+    cfg = model.cfg
+    reqs = mixed_requests(cfg, 8, base_prompt=PROMPT, base_new=NEW, seed=0)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 1
+    budgets = {r.session_id: r.max_new_tokens for r in reqs}
+    kw = dict(n_slots=4, max_len=max_len, paged=True, page_size=PAGE,
+              prefill_chunk=512, temperature=SAMPLE_T, top_k=SAMPLE_K, seed=SEEDS[0])
+    counts, out, events = {}, {}, {}
+    for label, K, capture in (("K=4", 4, True), ("K=4 uncaptured", 4, False),
+                              ("K=1", 1, True)):
+        sched = SlotScheduler(model, params, steps_per_tick=K, **kw)
+        sched._progs.capture = capture
+        for r in reqs:
+            sched.submit(r)
+        zero_counts()
+        with torch.inference_mode():
+            res = sched.run()
+        if capture:
+            counts[label] = launched()
+        replayed = programs.replay_launches.get("paged_decode_attention", 0)
+        got = {sid: len(s.tokens) for sid, s in res.sessions.items()}
+        step_s = [t for s in res.sessions.values() for t in s.step_times_s]
+        p50 = statistics.median(step_s) * 1e3
+        slowest = max(step_s) * K * 1e3    # the first dispatch's wall: the capture
+        log(f"  paged, {label}: {res.run_tokens} tokens in {res.ticks} ticks / "
+            f"{res.dispatches} decode dispatches, {res.preemptions} preemptions; "
+            f"{res.tokens_per_s:.2f} tok/s over {res.wall_s:.3f} s; p50 decode "
+            f"time a token {p50:.4f} ms; slowest dispatch {slowest:.1f} ms; graphs "
+            f"{res.step_cache_size}; kernel-2 launches by replays {replayed}")
+        if got != budgets:
+            raise AssertionError(f"paged {label}: sessions ended short: {got} vs {budgets}")
+        check_balanced(sched, f"paged {label}")
+        if capture and (res.step_cache_size != 1
+                        or replayed != res.dispatches * K * cfg.n_layers):
+            raise AssertionError(f"paged {label}: {res.step_cache_size} graphs, "
+                                 f"{replayed} kernel-2 launches by the replays, "
+                                 f"want 1 and {cfg.n_layers} x {K} x {res.dispatches}")
+        events[label] = (res.events, sched.gen.get_state())
+        out[label] = dict(tok_s=res.tokens_per_s, p50_ms_token=p50, wall_s=res.wall_s,
+                          slowest_dispatch_ms=slowest, ticks=res.ticks,
+                          dispatches=res.dispatches, tokens=res.run_tokens,
+                          preemptions=res.preemptions)
+        del sched
+    (ev, st), (ev_plain, st_plain) = events["K=4"], events["K=4 uncaptured"]
+    if ev != ev_plain or not torch.equal(st, st_plain):
+        raise AssertionError("paged K=4: the captured scheduler's event log (or "
+                             "its generator) differs from the uncaptured one's")
+    log(f"  paged K=4: captured and uncaptured event logs equal ({len(ev)} events), "
+        "generators at one offset; every session ended with its budget, pools "
+        "balance")
+    out["events_equal"] = True
+    out["kernel2_per_device_step"] = cfg.n_layers
+    return counts, out
+
+
+def sampling_phase(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine
+    log(f"== phase 10c: stochastic sampling inside the captured graphs, qwen2.5-7b "
+        f"full width (28 layers, bf16), prompt {PROMPT}, {NEW} new tokens, "
+        f"temperature {SAMPLE_T}, top_k {SAMPLE_K}")
+    cfg = get_config("qwen2.5-7b")
+    model = Model(cfg, decode_backend="cuda", device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = prompt_batch(cfg.vocab_size, dev)
+    max_len = PROMPT + NEW + 1
+    norms = 2 * cfg.n_layers + 1
+    engine = DecodeEngine(model, params)
+    counts, out = {}, {}
+    counts["bf16"], out["bf16"] = sampled_batch1(
+        engine, batch, max_len, "A, bf16",
+        {"decode_attention": cfg.n_layers, "rmsnorm": norms})
+    out["sample_ops"] = sample_ops(engine, batch, max_len, dev)
+    del engine
+    free_card()
+    engine = DecodeEngine(model, params, quant_path="int4_fused")
+    counts["int4"], out["int4_fused"] = sampled_batch1(
+        engine, batch, max_len, "B, int4_fused",
+        {"int4_matmul": 7 * cfg.n_layers, "decode_attention": cfg.n_layers,
+         "rmsnorm": norms})
+    del engine
+    free_card()
+    paged_counts, out["paged"] = sampled_paged(dev, model, params)
+    counts.update(paged_counts)
+    out.update(temperature=SAMPLE_T, top_k=SAMPLE_K, seeds=list(SEEDS))
+    del params, model
+    free_card()
+    return counts, out
 
 
 def check_f32_paged_tokens(dev):
@@ -3802,7 +4051,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=["kernels", "families", "train", "dist",
-                                       "analysis", "examples"],
+                                       "analysis", "examples", "sampling"],
                     help="kernels: phases 1-6 and the kernels line (launches "
                          "null), no main path and no ok line; families: "
                          "phases 1, 9c and 17 (the moe, vlm and audio "
@@ -3814,7 +4063,9 @@ def main(argv=None) -> int:
                          "the one-card roofline), no kernels line and no ok "
                          "line; examples: phases 1 and 21 (the examples and "
                          "the full-width quant ablation), no kernels line and "
-                         "no ok line")
+                         "no ok line; sampling: phases 1 and 10c (stochastic "
+                         "sampling in the captured graphs), no kernels line "
+                         "and no ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3823,6 +4074,10 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     smi, dev = setup()
+    if args.only == "sampling":
+        log(json.dumps({"sampling": sampling_phase(dev)[1]}))
+        log(smi.splitlines()[0])
+        return 0
     if args.only == "examples":
         log(json.dumps({"examples": examples_phase(dev)[1]}))
         log(smi.splitlines()[0])
@@ -3873,6 +4128,7 @@ def main(argv=None) -> int:
     da_launches, i4_launches, dense_norms, prefill = main_path(dev)
     rows[1].update(prefill)
     torch.cuda.empty_cache()
+    sc, sampling_out = sampling_phase(dev)
     paged_launches, paged_norms = paged_serving(dev)
     ssm = [ssm_main_path(dev, "mamba2-2.7b", 13),
            ssm_main_path(dev, "zamba2-1.2b", 14)]
@@ -3896,15 +4152,22 @@ def main(argv=None) -> int:
     d_decode = "qwen2.5-7b-width decode on DTensors (2 layers, sequence-split cache)"
     d_train = "qwen2.5-3b training bf16 on DTensors (1x1 mesh, uncaptured)"
     ablated = {p: f"qwen2.5-7b batch-1 {p} (quant ablation)" for p in ec}
+    s_dense, s_int4 = (f"qwen2.5-7b batch-1 {q} sampled (fused graph)"
+                       for q in ("bf16", "int4"))
+    s_k4, s_k1 = (f"qwen2.5-7b paged bf16 KV sampled {k}" for k in ("K=4", "K=1"))
     by_path = [
         {dense: da_launches, zamba: ssm[1]["decode_attention"],
          moe: fc["moe"]["decode_attention"], moe_q: fc["moe_int4"]["decode_attention"],
          vl: fc["vlm"]["decode_attention"], audio: fc["audio"]["decode_attention"],
-         d_decode: dc["decode"]["decode_attention"]},
+         d_decode: dc["decode"]["decode_attention"],
+         s_dense: sc["bf16"]["decode_attention"], s_int4: sc["int4"]["decode_attention"]},
         {int4: i4_launches, moe_q: fc["moe_int4"]["int4_matmul"],
-         ablated["int4_fused"]: ec["int4_fused"]["int4_matmul"]},
+         ablated["int4_fused"]: ec["int4_fused"]["int4_matmul"],
+         s_int4: sc["int4"]["int4_matmul"]},
         {paged[0]: paged_launches[0], tiered[0]: t_bf16[0],
-         moe_p: fc["moe_paged"]["paged_decode_attention"]},
+         moe_p: fc["moe_paged"]["paged_decode_attention"],
+         s_k4: sc["K=4"]["paged_decode_attention"],
+         s_k1: sc["K=1"]["paged_decode_attention"]},
         {paged[1]: paged_launches[1], tiered[1]: t_int8[0]},
         {dense: dense_norms, paged[0]: paged_norms[0], paged[1]: paged_norms[1],
          tiered[0]: t_bf16[1], tiered[1]: t_int8[1],
@@ -3912,7 +4175,9 @@ def main(argv=None) -> int:
          moe: fc["moe"]["rmsnorm"], moe_q: fc["moe_int4"]["rmsnorm"],
          moe_p: fc["moe_paged"]["rmsnorm"], vl: fc["vlm"]["rmsnorm"],
          audio: fc["audio"]["rmsnorm"], trained: tc["rmsnorm"],
-         d_decode: dc["decode"]["rmsnorm"], d_train: dc["train"]["rmsnorm"]},
+         d_decode: dc["decode"]["rmsnorm"], d_train: dc["train"]["rmsnorm"],
+         s_dense: sc["bf16"]["rmsnorm"], s_int4: sc["int4"]["rmsnorm"],
+         s_k4: sc["K=4"]["rmsnorm"], s_k1: sc["K=1"]["rmsnorm"]},
         {mamba: ssm[0]["ssd_update"], zamba: ssm[1]["ssd_update"]},
         {trained: tc["rmsnorm_bwd"], d_train: dc["train"]["rmsnorm_bwd"]},
         {moe_q: fc["moe_int4"]["dequantize"],
@@ -3923,6 +4188,7 @@ def main(argv=None) -> int:
         row["launches_by_path"] = counts
         log(f"  {row['name']} launches per main path: {counts}")
     log(json.dumps({"pending_kernels": PENDING}))
+    log(json.dumps({"sampling": sampling_out}))
     log(json.dumps({"dispatch_ab": ab}))
     log(json.dumps({"host_tier": tier}))
     log(json.dumps({"families": fam}))

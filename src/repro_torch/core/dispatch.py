@@ -20,7 +20,10 @@ call: it runs the step once eagerly on a side stream (a real step, which
 also makes the kernels' first-call allocations outside capture), then
 records the graphs, which executes nothing.  Later calls must pass the
 same cache (the same tensors at the same addresses) and raise otherwise,
-since a replay writes where the capture saw the cache.
+since a replay writes where the capture saw the cache.  A state that
+carries a generator (``"gen"``: the engine's fused loop draws from it)
+has it registered with each graph, and later calls must pass that same
+generator.
 
 The capture helpers (``warm_up``, ``capture``, ``_Captured``) serve the
 engine, the scheduler and the executors alike.  A replay launches the
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -82,16 +85,24 @@ def warm_up(fn: Callable[[], Any], device: torch.device) -> Any:
 
 
 def capture(fn: Callable[[], Any], inputs: Dict[str, torch.Tensor], *,
-            pool=None) -> _Captured:
+            pool=None, generators: Sequence[torch.Generator] = ()) -> _Captured:
     """Record ``fn()`` as one CUDA graph on its static ``inputs`` (into
     ``pool`` when given: graphs replayed in the order they were captured
     may share one).  Capture records the launches without running them.
+
+    ``generators`` are the generators ``fn`` draws from.  Each is
+    registered with the graph before capture: capture leaves it where it
+    was, and each replay draws at its offset then and advances it by the
+    graph's draws, so a replay draws what the same calls draw uncaptured.
+    A generator drawn from but not registered makes the capture raise.
 
     Reference cycles are collected first and the collector is off
     during capture: a cycle freed inside it (a scheduler and its host
     tier's page-locked rows, say) would make CUDA calls that a capture
     forbids, and the capture would fail."""
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     before = launch_counts()
     gc.collect()
     enabled = gc.isenabled()
@@ -133,10 +144,12 @@ class _GraphExecutor:
         tokens = state["tokens"].clone()
         static = dict(state, tokens=tokens)
         pool = torch.cuda.graph_pool_handle()
+        self._gen = state.get("gen")
+        gens = () if self._gen is None else (self._gen,)
         graphs = []
         for st in self.stages:
             cap = capture(lambda st=st, s=static: st(s), {"tokens": tokens},
-                          pool=pool)
+                          pool=pool, generators=gens)
             graphs.append(cap)
             static = cap.output
         self._addresses = _addresses(cache)
@@ -154,10 +167,11 @@ class _GraphExecutor:
                 return self._capture(state)
             tokens = self._graphs[0].inputs["tokens"]
             if (_addresses(cache) != self._addresses
-                    or state["tokens"].shape != tokens.shape):
+                    or state["tokens"].shape != tokens.shape
+                    or state.get("gen") is not self._gen):
                 raise ValueError("this executor's graphs were captured against "
-                                 "another cache or token shape; build an "
-                                 "executor for this one")
+                                 "another cache, token shape or generator; "
+                                 "build an executor for this one")
             tokens.copy_(state["tokens"])
             for g in self._graphs:
                 g.replay()

@@ -10,16 +10,18 @@ two loops:
                   host's side of the graph (what a Python serving loop
                   does; pays one launch per token)
   fused-loop    — ``Model.decode_steps`` over all N tokens with greedy
-                  sampling on the device, captured as one graph, the
-                  tokens read back once at the end
+                  or temperature / top-k sampling on the device,
+                  captured as one graph, the tokens read back once at
+                  the end
 
 and ``generate_continuous`` serves many sessions through the
 continuous-batching scheduler (serving/scheduler.py).  For the dispatch
 A/B, ``step_program`` opens the same step up to the ``eager`` and
 ``stage_jit`` executors.
 
-Graphs are captured once per (batch, max_len, KV dtype, loop, horizon),
-as ``jax.jit`` keeps one executable per shape, each by a ``full_jit``
+Graphs are captured once per (batch, max_len, KV dtype, loop, horizon)
+(the fused loop's also per temperature and top-k, which its graph
+holds), as ``jax.jit`` keeps one executable per shape, each by a ``full_jit``
 executor of ``core/dispatch.py``: the generation loops prefill
 into one preallocated cache per (batch, max_len, KV dtype), in place
 (rows past ``pos`` are masked; ssm state and conv windows are
@@ -29,6 +31,11 @@ allocations outside capture) and captures the graph right after it;
 capture runs nothing.  Prefill stays per op: its shapes change with every prompt
 length, and a 2048-token prefill keeps the card busy on its own.  On the
 CPU nothing is captured and every call is plain.
+
+A stochastic fused graph draws from the one generator its executor
+keeps, registered with the graph at capture; each call reseeds it
+before the first token is drawn, so a replay draws what the same calls
+draw uncaptured from that seed.
 
 Everything runs under ``torch.inference_mode()``; tokens stay on the
 device between steps.
@@ -68,6 +75,7 @@ class DecodeEngine:
         self.kv_dtype = kv_dtype      # torch.int8: int8 KV codes + scales
         self._caches: Dict[tuple, dict] = {}    # (B, max_len, kv_dtype) -> cache
         self._executors: Dict[tuple, object] = {}   # cache key + (loop, horizon)
+        self._generators: Dict[tuple, torch.Generator] = {}   # executor key
 
     # -------------------------------------------------------------- API
     def _sync(self) -> None:
@@ -126,8 +134,13 @@ class DecodeEngine:
             return ids[:, None]
         return ids
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
+    def _generator(self, key: tuple, seed: int) -> torch.Generator:
+        """The generator kept for executor ``key``, reseeded with
+        ``seed``: a graph that draws keeps drawing from the generator it
+        was captured with."""
+        if key not in self._generators:
+            self._generators[key] = torch.Generator(device=self.device)
+        return self._generators[key].manual_seed(seed)
 
     @torch.inference_mode()
     # staticcheck: hotpath
@@ -143,7 +156,7 @@ class DecodeEngine:
         walls for percentile reporting."""
         logits, key = self._prefill_reused(batch, max_len)
         cache = self._caches[key]
-        gen = self._generator(seed)
+        gen = self._generator(key + ("step",), seed)
         out, times = [], []
         tok = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
         out.append(tok)
@@ -171,22 +184,20 @@ class DecodeEngine:
                        top_k: int = 0) -> GenerationResult:
         """N tokens through ``Model.decode_steps``: sampling on the device
         and one read-back of the token matrix at the end; on the card the
-        N-1 steps are one graph replay (greedy only: a draw inside a
-        captured graph is not ported)."""
-        if self.device.type == "cuda" and temperature > 0.0:
-            raise NotImplementedError(
-                "stochastic sampling inside the captured fused graph is not "
-                "ported; use generate_streamed or greedy decoding on the card")
+        N-1 steps are one graph replay, per (temperature, top_k) as well
+        as shape.  A stochastic graph draws from its executor's generator,
+        reseeded with ``seed`` here."""
         logits, key = self._prefill_reused(batch, max_len)
         cache = self._caches[key]
-        gen = self._generator(seed)
-        tok0 = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
         horizon = n_new - 1
+        run_key = key + ("steps", horizon, temperature, top_k)
+        gen = self._generator(run_key, seed) if temperature > 0.0 else None
+        tok0 = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
         state = {"tokens": self._token_shape(tok0), "cache": cache, "gen": gen,
                  "horizon": horizon, "temperature": temperature, "top_k": top_k}
         self._sync()
         t0 = time.perf_counter()
-        toks = self._run(key + ("steps", horizon), self._steps_stage, state)["out"]
+        toks = self._run(run_key, self._steps_stage, state)["out"]
         self._sync()
         dt = time.perf_counter() - t0
         tokens = torch.cat([self._token_shape(tok0), toks], dim=1)

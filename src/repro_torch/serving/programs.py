@@ -8,7 +8,9 @@ captured once per (route, K) at first use and replayed after that.  The
 graph reads its tokens and lane budgets from static input buffers and
 the cache, block table and positions at their fixed addresses, which the
 scheduler updates in place.  On a CPU model every program is a plain
-call.
+call.  A stochastic horizon-K graph draws from the scheduler's generator,
+registered with each K's graph at capture, so the replays draw what the
+same ticks draw uncaptured; the K=1 step samples outside its graph.
 
 The capture helpers and the launch tallies (``captured_launches``,
 ``replay_launches``) are ``core/dispatch.py``'s, shared with the engine
@@ -44,14 +46,9 @@ class SchedulerPrograms:
     (token matrix, cache); on the card the returned tensor is the
     graph's static output, overwritten by the next replay."""
 
-    def __init__(self, model: Model, *, paged: bool, steps_per_tick: int,
-                 temperature: float, kv_tier: str = "none"):
+    def __init__(self, model: Model, *, paged: bool, kv_tier: str = "none"):
         self.model = model
         self.capture = model.device.type == "cuda"
-        if self.capture and steps_per_tick > 1 and temperature > 0.0:
-            raise NotImplementedError(
-                "stochastic sampling inside a captured horizon-K graph is not "
-                "ported; use steps_per_tick=1 or greedy decoding on the card")
         self.prefill_chunk = model.prefill_chunk_into_slot if paged else None
         self.copy_page = model.copy_kv_page if paged else None
         self.prefill_slot = None if paged else model.prefill_into_slot
@@ -61,13 +58,15 @@ class SchedulerPrograms:
         self._graphs: Dict[tuple, _Captured] = {}
 
     def _capture(self, key, inputs: Dict[str, torch.Tensor], warm,
-                 run) -> _Captured:
+                 run, gen: Optional[torch.Generator] = None) -> _Captured:
         """Warm the program up on a side stream with every lane inactive
         (state-preserving: no position moves, writes go to the garbage
         page or rewrite the old row), then capture ``run`` on the static
-        ``inputs``.  Capture records the launches without running them."""
+        ``inputs``, with ``gen`` (what ``run`` draws from) registered.
+        Capture records the launches without running them."""
         warm_up(warm, self.model.device)
-        self._graphs[key] = capture(run, inputs)
+        self._graphs[key] = capture(run, inputs,
+                                    generators=() if gen is None else (gen,))
         return self._graphs[key]
 
     def step(self, params, cache, tokens: torch.Tensor):
@@ -93,7 +92,10 @@ class SchedulerPrograms:
               steps_left: torch.Tensor, gen: Optional[torch.Generator], *,
               horizon: int, temperature: float, top_k: int,
               eos_id: Optional[int]):
-        """A horizon-K macro-tick: (B, horizon) sampled tokens."""
+        """A horizon-K macro-tick: (B, horizon) sampled tokens, drawn
+        from ``gen`` when ``temperature > 0``.  The warm-up before a
+        capture draws from a generator of its own, so ``gen`` moves only
+        with the ticks, as uncaptured."""
         model = self.model
         kw = dict(horizon=horizon, temperature=temperature, top_k=top_k,
                   eos_id=eos_id)
@@ -105,12 +107,14 @@ class SchedulerPrograms:
         if prog is None:
             tok = torch.zeros_like(tokens, device=model.device)
             left = torch.zeros_like(steps_left, device=model.device)
+            draw = gen if temperature > 0.0 else None
+            spare = None if draw is None else torch.Generator(device=model.device)
             prog = self._capture(
                 key, {"tokens": tok, "steps_left": left},
-                lambda: model.decode_steps(params, cache, tok, None,
+                lambda: model.decode_steps(params, cache, tok, spare,
                                            torch.zeros_like(left), **kw),
-                lambda: model.decode_steps(params, cache, tok, None, left,
-                                           **kw)[0])
+                lambda: model.decode_steps(params, cache, tok, draw, left,
+                                           **kw)[0], draw)
         prog.inputs["tokens"].copy_(tokens)
         prog.inputs["steps_left"].copy_(steps_left)
         prog.replay()

@@ -24,9 +24,10 @@ aborts, the session TTL, pool-pressure holds, the idle-tick self-audit)
 follow the reference event for event; the tier's copies run between
 graph replays on the same stream.
 
-Sampling draws from a ``torch.Generator`` seeded with ``seed``; greedy
-streams are the contract, stochastic draws do not follow the
-reference's keys.
+Sampling draws from a ``torch.Generator`` seeded with ``seed``, eagerly
+at K=1 and inside the captured graph at K > 1 (registered with it, so
+captured and uncaptured ticks draw alike); greedy streams are the
+contract, stochastic draws do not follow the reference's keys.
 """
 from __future__ import annotations
 
@@ -140,9 +141,7 @@ class SlotScheduler(VirtualClockMixin):
         self.arrivals_released = 0
         self.horizon_hist: collections.Counter = collections.Counter()
 
-        self._progs = SchedulerPrograms(
-            model, paged=paged, steps_per_tick=steps_per_tick,
-            temperature=temperature, kv_tier=kv_tier)
+        self._progs = SchedulerPrograms(model, paged=paged, kv_tier=kv_tier)
         self.paged = paged
         if prefix_cache and not paged:
             raise NotImplementedError(

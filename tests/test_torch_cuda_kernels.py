@@ -527,6 +527,45 @@ def test_paged_scheduler_graph_replays_equal_plain_calls(cuda, kv_quant, K):
     assert replayed == plain_launches
 
 
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_paged_scheduler_stochastic_graph_replays_equal_plain_calls(cuda, adaptive):
+    """int8 KV, K=4, temperature 0.8, top_k 5 on an oversubscribed pool:
+    the captured horizon graphs draw from the scheduler's generator
+    (registered at capture; the warm-up draws from its own) what the
+    same scheduler's plain calls draw, so the event logs are equal
+    through admission, preemption and backfill, and the generator ends
+    where the plain run's does; with ``adaptive_k`` one graph per K of
+    the ladder, all on that one generator.  Another seed, other draws."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import SessionRequest, SlotScheduler
+    cfg = get_config("qwen2.5-3b").reduced().replace(dtype="float32")
+    model = Model(cfg, decode_backend="cuda", device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    reqs = [SessionRequest(f"s{i}", (torch.arange(6 + 3 * i) * (i + 5)
+                                     % cfg.vocab_size).numpy(), 6 + i % 3)
+            for i in range(5)]
+    runs = []
+    for capture, seed in ((True, 11), (False, 11), (True, 12)):
+        sched = SlotScheduler(model, params, n_slots=2, max_len=40, paged=True,
+                              page_size=8, n_pages=1 + 5, steps_per_tick=4,
+                              adaptive_k=adaptive, kv_dtype=torch.int8,
+                              temperature=0.8, top_k=5, seed=seed)
+        sched._progs.capture = capture
+        for r in reqs:
+            sched.submit(r)
+        runs.append((sched.run(), sched.gen.get_state()))
+    (graph, g_state), (plain, p_state), (other, _) = runs
+    assert graph.events == plain.events and torch.equal(g_state, p_state)
+    assert graph.events != other.events
+    assert graph.preemptions >= 1
+    assert graph.step_cache_size == (len(graph.horizon_hist) if adaptive else 1)
+    if adaptive:
+        assert len(graph.horizon_hist) > 1
+    assert {sid: len(s.tokens) for sid, s in graph.sessions.items()} == \
+        {r.session_id: r.max_new_tokens for r in reqs}
+
+
 def _moe_requests(cfg):
     """Five sessions through three slots, slot 0's short: it frees while
     slots 1 and 2 decode, so free lanes (token 0) route through the
@@ -1152,6 +1191,20 @@ def _plain_greedy(eng, batch, max_len, n_new):
     return torch.stack(out, dim=1)
 
 
+def _plain_sampled(eng, batch, max_len, n_new, seed, temperature=0.8, top_k=5):
+    """Uncaptured stochastic tokens: prefill, the first draw, then
+    ``Model.decode_steps``, all from one generator seeded with ``seed``."""
+    from repro_torch.serving.sampling import sample
+    with torch.inference_mode():
+        logits, cache = eng.prefill(batch, max_len)
+        gen = torch.Generator(device=eng.device).manual_seed(seed)
+        tok = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
+        toks, _ = eng.model.decode_steps(eng.params, cache, tok[:, None], gen,
+                                         horizon=n_new - 1, temperature=temperature,
+                                         top_k=top_k)
+    return torch.cat([tok[:, None], toks], dim=1)
+
+
 @pytest.mark.parametrize("name,quant", [("qwen2.5-3b", "bf16"),
                                         ("qwen2.5-3b", "int4_fused"),
                                         ("mamba2-2.7b", "bf16")])
@@ -1185,8 +1238,35 @@ def test_engine_graph_tokens_equal_plain_calls(cuda, name, quant):
                 - before[1].get(kernel, 0)) == n * steps, kernel
     # the wrappers ran only for the two prefills (their norms)
     assert launch_counts()["rmsnorm"] - before[0]["rmsnorm"] == 2 * per_step["rmsnorm"]
-    with pytest.raises(NotImplementedError, match="stochastic"):
-        eng.generate_fused(batch, max_len=40, n_new=n_new, temperature=0.8)
+    # stochastic: the fused graph (captured, then replayed) draws what
+    # uncaptured decode_steps draws from the same seed
+    want = _plain_sampled(eng, batch, 40, n_new, seed=5)
+    for _ in range(2):
+        assert torch.equal(eng.generate_fused(batch, max_len=40, n_new=n_new, seed=5,
+                                              temperature=0.8, top_k=5).tokens, want)
+
+
+def test_engine_stochastic_graphs_are_keyed_by_temperature_and_top_k(cuda):
+    """Each (temperature, top_k) has its fused graph: a change of either
+    captures a new executor, whose replays draw that setting's tokens;
+    a second seed replays the graph with other draws; a greedy call
+    after them still gives the greedy tokens."""
+    eng = _ab_engine(cuda, "bf16")
+    batch = _ab_prompt(eng, cuda, 16)
+    settings = [(0.8, 5), (0.8, 0), (0.5, 5)]
+    for t, k in settings:
+        streams = []
+        for seed in (1, 2, 1):
+            got = eng.generate_fused(batch, max_len=40, n_new=10, seed=seed,
+                                     temperature=t, top_k=k).tokens
+            assert torch.equal(got, _plain_sampled(eng, batch, 40, 10, seed, t, k))
+            streams.append(got)
+        assert not torch.equal(streams[0], streams[1]) and torch.equal(streams[0],
+                                                                       streams[2])
+    assert len(eng._executors) == len(settings) and len(eng._generators) == len(settings)
+    assert torch.equal(eng.generate_fused(batch, max_len=40, n_new=10).tokens,
+                       _plain_greedy(eng, batch, 40, 10))
+    assert len(eng._executors) == len(settings) + 1
 
 
 def test_engine_loops_keep_their_own_graphs_at_one_horizon(cuda):

@@ -365,8 +365,9 @@ def test_engine_keys_each_loop_apart():
             want = getattr(DecodeEngine(Model(cfg, device=CPU), params), gen)(
                 batch, max_len=MAX_LEN, n_new=2).tokens
             assert got.shape == (1, 2) and torch.equal(got, want), gen
-    key = (1, MAX_LEN, None)
-    assert sorted(eng._executors, key=str) == [key + ("step",), key + ("steps", 1)]
+    key = (1, MAX_LEN, None)    # the fused key adds (temperature, top_k)
+    assert sorted(eng._executors, key=str) == [key + ("step",),
+                                               key + ("steps", 1, 0.0, 0)]
     assert len(eng._caches) == 1
 
 

@@ -33,7 +33,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         ROOT / "scripts" / "dispatch_ab_probe.py",
         ROOT / "scripts" / "moe_int4_probe.py",
         ROOT / "scripts" / "dequantize_probe.py",
-        ROOT / "scripts" / "moe_determinism_probe.py"] + sorted(
+        ROOT / "scripts" / "moe_determinism_probe.py",
+        ROOT / "scripts" / "sampling_probe.py"] + sorted(
             (ROOT / "examples" / "torch").glob("*.py"))
     assert len(files) > 20
     assert {f.name for f in files if f.parent.name == "torch"} == {
