@@ -305,7 +305,27 @@ Phases, in order; each raises on failure and nothing catches:
     (``tree_weight_traffic``), the H100 floor, the graph p50 and the
     realised rate (charged bytes over p50), which must not pass 3.35
     TB/s.  Its numbers go on an ``{"examples": ...}`` line.
-22. the kernels line: one JSON object with every ported kernel's
+22. the static hot-path checker (``repro_torch.analysis.staticcheck``)
+    against torch's own sync detector.  (a) the checker over
+    ``src/repro_torch``: zero findings; its suppressed hot-sync findings
+    (the deliberate syncs, each with its written justification) and the
+    functions it reads as hot.  (b) qwen2.5-7b at full width, 2 layers,
+    bf16 (random weights drawn on the card): each hot function's graph
+    warmed up and captured first, then 8 calls or more of each with
+    ``torch.cuda.set_sync_debug_mode("warn")`` on and every warning's
+    Python stack caught: eager ``Model.decode_step`` and greedy
+    ``decode_steps``, the ``full_jit`` executor's replay,
+    ``DecodeEngine.generate_streamed`` (timed=False), and the paged
+    scheduler's ``_decode_tick_single`` (with ``_run_step``) and
+    ``_decode_tick_horizon`` (K=4); then ``jit_train_step``'s replay
+    (``_GraphStep.__call__``) on qwen2.5-3b, 2 layers, seq 512.  For each
+    function, the syncs a call the card saw, site by site (the chain of
+    the repository's frames from the function inward), beside the
+    deliberate syncs the checker reports in its body; a site the card
+    saw that no finding and no justified suppression on its chain
+    accounts for fails the phase.  Its numbers go on a
+    ``{"staticcheck": ...}`` line.
+23. the kernels line: one JSON object with every ported kernel's
     numbers (all five, kernel 5's backward and the dequantisation
     kernel, both port-only: no TPU kernel is left to port; ``device_us`` and
     ``b2b_us`` for kernels 4 and 5, null for the others); ``launches`` sums
@@ -317,7 +337,7 @@ Phases, in order; each raises on failure and nothing catches:
     their own in ``launches_by_path``, as are phase 10c's sampled paths.  ``dequantize`` counts phase 17's
     int4 moe cell and phase 21's three dequantising 7b paths (whose
     int4_fused path adds to kernel 3's row).
-23. last line: ``{"ok": true, "device": {...}}``.
+24. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only kernels
 
@@ -326,7 +346,8 @@ the ``ok`` line: the quick call for tuning a kernel.  ``--only families``
 runs phases 1, 9c and 17 only, ``--only train`` phases 1, 5b and 18,
 ``--only dist`` phases 1 and 19, ``--only analysis`` phases 1 and 20,
 ``--only examples`` phases 1 and 21, ``--only sampling`` phases 1 and
-10c (no kernels line, no ``ok`` line).
+10c, ``--only staticcheck`` phases 1 and 22 (no kernels line, no ``ok``
+line).
 Every phase prints its name on a line of its own before it starts.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -338,7 +359,9 @@ tensor cores).
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
+import inspect
 import io
 import json
 import os
@@ -346,6 +369,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -4033,6 +4058,379 @@ def examples_phase(dev):
     return counts, out
 
 
+# ---------------------------------------------------------------- phase 22
+SC_CALLS = 8                    # calls of each hot function under the detector
+SC_ARCH, SC_TRAIN_ARCH, SC_LAYERS = "qwen2.5-7b", "qwen2.5-3b", 2
+SC_PROMPT, SC_NEW, SC_SEQ = 512, 32, 512
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def repo_path(filename: str) -> str:
+    return os.path.relpath(os.path.abspath(filename), ROOT)
+
+
+class SyncDetector:
+    """torch's own sync detector (``torch.cuda.set_sync_debug_mode("warn")``)
+    around the calls of hot functions.  Each synchronizing operation's
+    warning is caught with the Python stack it was raised under (the
+    warning is raised as the operation returns to Python, so the stack
+    names the line that called it and every caller); ``counted`` wraps a
+    function so that its calls are counted and run with the detector on.
+    The detector stays off everywhere else: warm-ups and captures run
+    before anything is wrapped."""
+
+    def __init__(self):
+        self.stacks: list = []
+        self.calls: dict = {}
+        self.other: set = set()
+        self._depth = 0
+
+    def _show(self, message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING in str(message):
+            self.stacks.append(traceback.extract_stack()[:-1])
+        else:
+            self.other.add(f"{repo_path(filename)}:{lineno}: {message}")
+
+    @contextlib.contextmanager
+    def on(self):
+        self._depth += 1
+        try:
+            if self._depth > 1:
+                yield
+                return
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = self._show
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    yield
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        finally:
+            self._depth -= 1
+
+    def counted(self, name: str, fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            with self.on():
+                return fn(*args, **kw)
+        return run
+
+    def sites(self, code) -> list:
+        """Each caught sync whose stack passes through ``code``: the chain
+        of (file, line) frames of the repository from ``code``'s frame
+        inward (its own line first)."""
+        last = max(line for _, _, line in code.co_lines() if line)
+        here = (code.co_filename, code.co_name)
+        out = []
+        for stack in self.stacks:
+            for i, fr in enumerate(stack):
+                if (fr.filename, fr.name) == here and \
+                        code.co_firstlineno <= fr.lineno <= last:
+                    out.append(tuple((repo_path(f.filename), f.lineno)
+                                     for f in stack[i:]
+                                     if not repo_path(f.filename).startswith("..")))
+                    break
+        return out
+
+
+SYNC_FORMS = (
+    "x[0].item()", "x[:4].tolist()", "x.cpu()", 'x.to("cpu")',
+    'x.to("cpu", non_blocking=True)', "int(x[0])", "float(x[0])", "bool(x[0] > 0)",
+    "if (x > 0).any(): x = x + 1", "y = not (x[0] > 0)", "y = (x[0] > 0) and (x[1] > 0)",
+    "x.nonzero()", "torch.nonzero(x)", "torch.where(x > 0)", "x[x > 0]",
+    "torch.masked_select(x, x > 0)", "torch.unique(x)",
+    "torch.repeat_interleave(x[:4], reps)",
+    "torch.repeat_interleave(x[:4], reps, output_size=8)",
+    "torch.cuda.synchronize()", "stream.synchronize()", "event.synchronize()",
+    "dst.copy_(host)", "dst.copy_(pinned)", "dst.copy_(pinned, non_blocking=True)",
+    "host.to(dev)", "host.to(dev, non_blocking=True)",
+    "pinned.to(dev, non_blocking=True)", "torch.tensor([1, 2], device=dev)",
+    "x.to(torch.float16)", "int(x.shape[0])", "x.sum()", "x[idx]")
+FORM_SRC = """import numpy as np
+import torch
+
+
+# staticcheck: hotpath
+def form(x: torch.Tensor, dst: torch.Tensor, reps: torch.Tensor, idx: torch.Tensor,
+         stream, event, dev):
+    host = torch.from_numpy(np.arange(4096, dtype=np.float32))
+    pinned = host.pin_memory()
+    {stmt}
+"""
+FORM_LINE = 10
+FORM_FILE = "<sync-form>"
+
+
+def sync_forms(dev, rule_flags):
+    """22c: each form of ``SYNC_FORMS`` as the one statement of a hot
+    function (``FORM_SRC``), run 3 times under the detector: the syncs a
+    call the card saw at that statement beside whether the hot-sync rule
+    flags it (``rule_flags(source) -> bool``, on the same text).  Returns
+    {form: {"card": syncs a call, "rule": bool}}."""
+    x = torch.randn(4096, device=dev)
+    args = dict(x=x, dst=torch.empty(4096, device=dev),
+                reps=torch.full((4,), 2, dtype=torch.int64, device=dev),
+                idx=torch.tensor([1, 2], device=dev),
+                stream=torch.cuda.Stream(dev), event=torch.cuda.Event(), dev=dev)
+    args["event"].record()
+    out = {}
+    for stmt in SYNC_FORMS:
+        src = FORM_SRC.format(stmt=stmt)
+        ns: dict = {}
+        exec(compile(src, FORM_FILE, "exec"), ns)
+        det = SyncDetector()
+        run = det.counted("form", ns["form"])
+        for _ in range(3):
+            run(**args)
+        torch.cuda.synchronize()
+        card = sum(any(fr.filename == FORM_FILE and fr.lineno == FORM_LINE for fr in st)
+                   for st in det.stacks) / 3
+        out[stmt] = dict(card=card, rule=rule_flags(src))
+    return out
+
+
+def checker_view():
+    """22a: the port's checker over ``src/repro_torch``.  Returns its
+    findings, the hot-sync findings its suppressions cover ({(file,
+    line): (qualname, justification)}) and the functions it reads as
+    hot ([(file, qualname, def line)])."""
+    from repro_torch.analysis.staticcheck import core
+    port = ROOT / "src" / "repro_torch"
+    suppressed: list = []
+    findings, n_files = core.run_paths([str(port)], suppressed=suppressed)
+    deliberate = {(repo_path(f.path), f.line): (f.context, s.justification)
+                  for f, s in suppressed if f.rule == "hot-sync" and s.justification}
+    hot = [(repo_path(path), qual, line)
+           for path, qual, line in core.hot_functions([str(port)])]
+    log(f"  22a: the port's checker over src/repro_torch: {n_files} files, "
+        f"{len(findings)} findings, {len(suppressed)} suppressed ({len(deliberate)} "
+        f"deliberate hot-path syncs), {len(hot)} hot functions")
+    for f in findings:
+        log(f"    {f.render()}")
+    return findings, deliberate, hot
+
+
+def form_flagged(src: str) -> bool:
+    from repro_torch.analysis.staticcheck import core
+    return any(f.rule == "hot-sync" and f.line == FORM_LINE
+               for f in core.check_source(src, FORM_FILE, ["hot-sync"]))
+
+
+def sc_model(dev, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(arch).replace(n_layers=SC_LAYERS)
+    model = Model(cfg, decode_backend="cuda", device=dev)
+    return model, model.init(torch.Generator(device=dev).manual_seed(0))
+
+
+def drive_decode(det, dev, model, params):
+    """Eager ``decode_step`` and greedy ``decode_steps`` (horizon 4) on a
+    prefilled batch-1 cache, then the ``full_jit`` executor of
+    ``step_program`` on a cache of its own (its first call captures)."""
+    batch = prompt_batch(model.cfg.vocab_size, dev, SC_PROMPT, seed=3)
+    max_len = SC_PROMPT + 8 * SC_CALLS * 4
+    with torch.inference_mode():
+        cache = model.init_cache(1, max_len)
+        logits, _ = model.prefill(params, batch, cache)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        model.decode_step(params, cache, tok)
+        model.decode_steps(params, cache, tok, horizon=4)
+        step = det.counted("Model.decode_step", model.decode_step)
+        steps = det.counted("Model.decode_steps", model.decode_steps)
+        for _ in range(SC_CALLS):
+            step(params, cache, tok)
+            steps(params, cache, tok, horizon=4)
+        cache = model.init_cache(1, max_len)
+        model.prefill(params, batch, cache)
+        run = model.step_program(params, cache).executor("full_jit")
+        state = {"tokens": tok, "cache": cache}
+        run(state)                                   # the real step and the capture
+        call = det.counted("_GraphExecutor.__call__", run.__call__)
+        for _ in range(SC_CALLS):
+            call(state)
+    torch.cuda.synchronize()
+
+
+def drive_engine(det, dev, model, params):
+    """``generate_streamed`` (timed=False), its shape's graph captured by
+    a first request."""
+    from repro_torch.serving import DecodeEngine
+    engine = DecodeEngine(model, params)
+    batch = prompt_batch(model.cfg.vocab_size, dev, SC_PROMPT, seed=4)
+    kw = dict(max_len=SC_PROMPT + 16, n_new=8)
+    engine.generate_streamed(batch, **kw)
+    gen = det.counted("DecodeEngine.generate_streamed", engine.generate_streamed)
+    for _ in range(SC_CALLS):
+        gen(batch, **kw)
+    torch.cuda.synchronize()
+
+
+def drive_scheduler(det, dev, model, params):
+    """The paged scheduler (4 slots, page 16, chunk 256) at K=1 and K=4:
+    a first run of 4 sessions captures the step graph, then 4 more
+    sessions run with the tick functions and the page store's ``sync``
+    counted."""
+    from repro_torch.launch.serve import mixed_requests
+    from repro_torch.serving import SlotScheduler
+    reqs = mixed_requests(model.cfg, 8, base_prompt=SC_PROMPT // 2, base_new=SC_NEW,
+                          seed=5)
+    max_len = max(len(r.prompt) + r.max_new_tokens for r in reqs) + 1
+    for K, names in ((1, ("_decode_tick_single", "_run_step")),
+                     (4, ("_decode_tick_horizon",))):
+        sched = SlotScheduler(model, params, n_slots=4, max_len=max_len, paged=True,
+                              page_size=PAGE, prefill_chunk=SC_PROMPT // 2,
+                              steps_per_tick=K)
+        with torch.inference_mode():
+            for r in reqs[:4]:
+                sched.submit(r)
+            sched.run()
+            for name in names:
+                setattr(sched, name, det.counted(f"SlotScheduler.{name}",
+                                                 getattr(sched, name)))
+            sched.store.sync = det.counted("PageStore.sync", sched.store.sync)
+            for r in reqs[4:]:
+                sched.submit(r)
+            res = sched.run()
+        budgets = {r.session_id: r.max_new_tokens for r in reqs}
+        if {sid: len(s.tokens) for sid, s in res.sessions.items()} != budgets:
+            raise AssertionError(f"22b: the K={K} scheduler's sessions ended short")
+        del sched
+    torch.cuda.synchronize()
+
+
+def drive_train(det, dev):
+    """``jit_train_step`` on qwen2.5-3b (2 layers, bf16, seq 512, remat
+    blocks): the first call is the real step and the capture."""
+    from repro_torch.training import (AdamW, DataCursor, jit_train_step,
+                                      make_train_step, synthetic_batch, trainable)
+    model, params = sc_model(dev, SC_TRAIN_ARCH)
+    opt = AdamW(lr=1e-4)
+    step = jit_train_step(make_train_step(model, opt, remat="blocks"))
+    params = trainable(params)
+    state = (params, opt.init(params))
+    batches = [synthetic_batch(model.cfg, DataCursor(7, i), batch=1, seq_len=SC_SEQ,
+                               device=dev) for i in range(SC_CALLS + 1)]
+    state, _ = step(state, batches[0])
+    call = det.counted("_GraphStep.__call__", step.__call__)
+    for b in batches[1:]:
+        state, metrics = call(state, b)
+    if not torch.isfinite(metrics["loss"]):
+        raise AssertionError("22b: the captured train step's loss is not finite")
+    del state, step, model, params
+    torch.cuda.synchronize()
+
+
+def hot_targets() -> dict:
+    """The hot functions phase 22 drives: {name: function}."""
+    from repro_torch.core import dispatch
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine, SlotScheduler
+    from repro_torch.serving.memory.tiers import PageStore
+    from repro_torch.training import train_loop
+    return {
+        "Model.decode_step": Model.decode_step,
+        "Model.decode_steps": Model.decode_steps,
+        "_GraphExecutor.__call__": dispatch._GraphExecutor.__call__,
+        "DecodeEngine.generate_streamed": DecodeEngine.generate_streamed,
+        "SlotScheduler._decode_tick_single": SlotScheduler._decode_tick_single,
+        "SlotScheduler._run_step": SlotScheduler._run_step,
+        "SlotScheduler._decode_tick_horizon": SlotScheduler._decode_tick_horizon,
+        "PageStore.sync": PageStore.sync,
+        "_GraphStep.__call__": train_loop._GraphStep.__call__,
+    }
+
+
+def drive_hot_paths(det, dev):
+    """22b's calls: every drive_* function above, the 7b model freed
+    before the 3b."""
+    model, params = sc_model(dev, SC_ARCH)
+    drive_decode(det, dev, model, params)
+    drive_engine(det, dev, model, params)
+    drive_scheduler(det, dev, model, params)
+    del model, params
+    free_card()
+    drive_train(det, dev)
+    free_card()
+
+
+def staticcheck_phase(dev):
+    """Phase 22; returns its numbers."""
+    free_card()
+    log("== phase 22: the static hot-path checker (repro_torch.analysis.staticcheck) "
+        f"against torch's sync detector, {SC_ARCH} and {SC_TRAIN_ARCH} at full width, "
+        f"{SC_LAYERS} layers, bf16, {SC_CALLS} calls of each hot function")
+    t_phase = time.perf_counter()
+    findings, deliberate, hot = checker_view()
+    problems = [f"22a: the port's checker reports {len(findings)} findings"] if findings else []
+    forms = sync_forms(dev, form_flagged)
+    log("  22c: each form as the one statement of a hot function, 3 calls: the card's "
+        "syncs a call | the hot-sync rule")
+    for stmt, row in forms.items():
+        agree = ("both" if row["card"] and row["rule"] else "card only" if row["card"]
+                 else "rule only" if row["rule"] else "neither")
+        row["agree"] = agree
+        log(f"    {stmt:55s} card {row['card']:.2f} | rule {row['rule']!s:5s} ({agree})")
+        if agree == "card only":
+            problems.append(f"22c: the card sees a sync in `{stmt}` that the rule misses")
+    det = SyncDetector()
+    drive_hot_paths(det, dev)
+    targets = hot_targets()
+    out = {"functions": {}, "forms": forms}
+    for name, fn in targets.items():
+        code = inspect.unwrap(fn).__code__
+        where = repo_path(code.co_filename)
+        body = range(code.co_firstlineno,
+                     max(line for _, _, line in code.co_lines() if line) + 1)
+        calls = det.calls.get(name, 0)
+        if calls < SC_CALLS:
+            problems.append(f"22b: {name} was called {calls} times, want >= {SC_CALLS}")
+        seen: dict = {}
+        for chain in det.sites(code):
+            seen[chain] = seen.get(chain, 0) + 1
+        rule = {line: why for (f, line), why in deliberate.items()
+                if f == where and line in body}
+        lines = []
+        for chain, n in sorted(seen.items()):
+            ok = any(site in deliberate for site in chain)
+            text = " > ".join(f"{f}:{line}" for f, line in chain)
+            lines.append(dict(chain=text, syncs=n, per_call=n / max(calls, 1),
+                              accounted=ok))
+            if not ok:
+                problems.append(f"22b: {name}: the card saw a sync at {text} that no "
+                                "rule or justified suppression accounts for")
+        hit = {chain[0][1] for chain in seen}
+        out["functions"][name] = dict(
+            file=where, calls=calls, card_syncs=sum(seen.values()),
+            card_syncs_per_call=sum(seen.values()) / max(calls, 1), card_sites=lines,
+            rule_deliberate=[dict(line=line, justification=why[1], card_saw=line in hit)
+                             for line, why in sorted(rule.items())])
+        log(f"  {name} ({where}): {calls} calls, the card saw "
+            f"{sum(seen.values()) / max(calls, 1):.2f} syncs a call at {len(seen)} site(s); the "
+            f"checker's deliberate syncs in its body: {len(rule)}")
+        for row in lines:
+            log(f"    card: {row['per_call']:.2f} a call at {row['chain']} "
+                f"({'accounted' if row['accounted'] else 'UNACCOUNTED'})")
+        for line, (_, why) in sorted(rule.items()):
+            log(f"    rule: {where}:{line} ({'the card saw it' if line in hit else 'rule only'}"
+                f"): {why}")
+    reached = {(repo_path(inspect.unwrap(fn).__code__.co_filename),
+                inspect.unwrap(fn).__code__.co_qualname) for fn in targets.values()}
+    out["hot_functions_not_reached"] = [f"{f}:{line} {qual}" for f, qual, line in hot
+                                        if (f, qual) not in reached]
+    log(f"  hot functions the phase does not reach: {out['hot_functions_not_reached']}")
+    for text in sorted(det.other):
+        log(f"  other warning: {text}")
+    out["findings"], out["deliberate"] = len(findings), len(deliberate)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 22 took {out['seconds']:.1f} s")
+    if problems:
+        raise AssertionError("phase 22: " + "; ".join(problems))
+    return out
+
+
 # ---------------------------------------------------------------- main
 PENDING = []    # TPU kernels still to port: none
 
@@ -4051,7 +4449,8 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=["kernels", "families", "train", "dist",
-                                       "analysis", "examples", "sampling"],
+                                       "analysis", "examples", "sampling",
+                                       "staticcheck"],
                     help="kernels: phases 1-6 and the kernels line (launches "
                          "null), no main path and no ok line; families: "
                          "phases 1, 9c and 17 (the moe, vlm and audio "
@@ -4065,7 +4464,9 @@ def main(argv=None) -> int:
                          "the full-width quant ablation), no kernels line and "
                          "no ok line; sampling: phases 1 and 10c (stochastic "
                          "sampling in the captured graphs), no kernels line "
-                         "and no ok line")
+                         "and no ok line; staticcheck: phases 1 and 22 (the "
+                         "static hot-path checker against torch's sync "
+                         "detector), no kernels line and no ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4074,6 +4475,10 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     smi, dev = setup()
+    if args.only == "staticcheck":
+        log(json.dumps({"staticcheck": staticcheck_phase(dev)}))
+        log(smi.splitlines()[0])
+        return 0
     if args.only == "sampling":
         log(json.dumps({"sampling": sampling_phase(dev)[1]}))
         log(smi.splitlines()[0])
@@ -4140,6 +4545,7 @@ def main(argv=None) -> int:
     dc, dist_out = distributed(dev)
     analysis_out = analysis()
     ec, examples_out = examples_phase(dev)
+    static_out = staticcheck_phase(dev)
     dense, int4 = "qwen2.5-7b batch-1 bf16", "qwen2.5-7b batch-1 int4"
     paged = ("qwen2.5-7b paged bf16 KV", "qwen2.5-7b paged int8 KV")
     tiered = ("qwen2.5-7b tiered paged bf16 KV", "qwen2.5-7b tiered paged int8 KV")
@@ -4196,6 +4602,7 @@ def main(argv=None) -> int:
     log(json.dumps({"distributed": dist_out}))
     log(json.dumps({"analysis": analysis_out}))
     log(json.dumps({"examples": examples_out}))
+    log(json.dumps({"staticcheck": static_out}))
     log(smi.splitlines()[0])
     print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,7 @@ import dataclasses
 import gc
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import launch_counts
@@ -69,6 +70,20 @@ class _Captured:
     def replay(self) -> None:
         self.graph.replay()
         _tally(replay_launches, self.launches)
+
+
+def pinned_copy(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``host`` as a CPU tensor to copy to ``device`` with
+    ``non_blocking=True`` (the scheduler's tokens, lane budgets, block
+    table and positions, each tick).  For a card it is a page-locked copy:
+    a copy from pageable memory makes the host wait, for the whole copy
+    when blocking and for the stream before CUDA stages it otherwise.  The
+    page-locked buffer comes from torch's caching host allocator, which
+    hands it out again only once the copy queued from it has run, so the
+    caller may rewrite ``host`` at once.  Off the card it is
+    ``torch.from_numpy(host)``."""
+    t = torch.from_numpy(host)
+    return t.pin_memory() if device.type == "cuda" else t
 
 
 def warm_up(fn: Callable[[], Any], device: torch.device) -> Any:
@@ -148,6 +163,7 @@ class _GraphExecutor:
         gens = () if self._gen is None else (self._gen,)
         graphs = []
         for st in self.stages:
+            # torchcheck: disable=capture-hazard -- one graph per stage, each captured once, at the executor's first call
             cap = capture(lambda st=st, s=static: st(s), {"tokens": tokens},
                           pool=pool, generators=gens)
             graphs.append(cap)

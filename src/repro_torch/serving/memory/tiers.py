@@ -62,6 +62,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.dispatch import pinned_copy
 from repro_torch.serving.memory.allocator import GARBAGE_PAGE, BlockAllocator
 from repro_torch.serving.memory.prefix import PrefixCache
 
@@ -287,6 +288,7 @@ class PageStore:
         self._pos[slot] = 0
         self._pos_dirty = True
 
+    # torchcheck: hotpath
     def sync(self, cache, pos_always: bool = True) -> None:
         """Copy the host-authoritative block table and positions into the
         cache's device tensors, in place.  The block table is copied only
@@ -294,12 +296,16 @@ class PageStore:
         ``pos_always`` re-copies positions every tick (the K=1 path,
         whose step advances every lane's device position), while the
         horizon-K path passes False (its steps freeze inactive lanes, so
-        only host-side resets need a copy)."""
+        only host-side resets need a copy).  On the card both copies go
+        from page-locked buffers without blocking (``pinned_copy``): the
+        decode tick makes one sync, its read of the sampled tokens."""
         if self._bt_dirty:
-            cache["block_table"].copy_(torch.from_numpy(self._bt))
+            bt = cache["block_table"]
+            bt.copy_(pinned_copy(self._bt, bt.device), non_blocking=True)
             self._bt_dirty = False
         if pos_always or self._pos_dirty:
-            cache["pos"].copy_(torch.from_numpy(self._pos))
+            pos = cache["pos"]
+            pos.copy_(pinned_copy(self._pos, pos.device), non_blocking=True)
             self._pos_dirty = False
 
     # ------------------------------------------------------ self-audit

@@ -70,10 +70,13 @@ class SchedulerPrograms:
         return self._graphs[key]
 
     def step(self, params, cache, tokens: torch.Tensor):
-        """One decode step on every lane; tokens (B, 1) int32."""
+        """One decode step on every lane; tokens (B, 1) int32, on the
+        card or page-locked (``core.dispatch.pinned_copy``), so that the
+        copy into the graph's input does not make the host wait."""
         model = self.model
         if not self.capture:
-            return model.decode_step(params, cache, tokens.to(model.device))
+            return model.decode_step(params, cache,
+                                     tokens.to(model.device, non_blocking=True))
         key = (model.decode_backend, 1)
         prog = self._graphs.get(key)
         if prog is None:
@@ -84,7 +87,7 @@ class SchedulerPrograms:
                 key, {"tokens": tok},
                 lambda: model.decode_step(params, cache, tok, active=idle),
                 lambda: model.decode_step(params, cache, tok)[0])
-        prog.inputs["tokens"].copy_(tokens)
+        prog.inputs["tokens"].copy_(tokens, non_blocking=True)
         prog.replay()
         return prog.output, cache
 
@@ -93,15 +96,17 @@ class SchedulerPrograms:
               horizon: int, temperature: float, top_k: int,
               eos_id: Optional[int]):
         """A horizon-K macro-tick: (B, horizon) sampled tokens, drawn
-        from ``gen`` when ``temperature > 0``.  The warm-up before a
+        from ``gen`` when ``temperature > 0``; ``tokens`` and
+        ``steps_left`` as ``step``'s tokens.  The warm-up before a
         capture draws from a generator of its own, so ``gen`` moves only
         with the ticks, as uncaptured."""
         model = self.model
         kw = dict(horizon=horizon, temperature=temperature, top_k=top_k,
                   eos_id=eos_id)
         if not self.capture:
-            return model.decode_steps(params, cache, tokens.to(model.device),
-                                      gen, steps_left.to(model.device), **kw)
+            return model.decode_steps(
+                params, cache, tokens.to(model.device, non_blocking=True), gen,
+                steps_left.to(model.device, non_blocking=True), **kw)
         key = (model.decode_backend, horizon)
         prog = self._graphs.get(key)
         if prog is None:
@@ -115,8 +120,8 @@ class SchedulerPrograms:
                                            torch.zeros_like(left), **kw),
                 lambda: model.decode_steps(params, cache, tok, draw, left,
                                            **kw)[0], draw)
-        prog.inputs["tokens"].copy_(tokens)
-        prog.inputs["steps_left"].copy_(steps_left)
+        prog.inputs["tokens"].copy_(tokens, non_blocking=True)
+        prog.inputs["steps_left"].copy_(steps_left, non_blocking=True)
         prog.replay()
         return prog.output, cache
 

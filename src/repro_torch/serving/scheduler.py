@@ -40,7 +40,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.dispatch import MODES, launch_count
+from repro_torch.core.dispatch import MODES, launch_count, pinned_copy
 from repro_torch.models.model import Model
 from repro_torch.serving.faults import FaultInjector, InjectedFault
 from repro_torch.serving.memory import (BlockAllocator, PageStore, PrefixCache,
@@ -993,9 +993,10 @@ class SlotScheduler(VirtualClockMixin):
                 -(-(sess.pos + 1) // self.page_size)
                 for _, sess in active))
         t0 = time.perf_counter()
-        logits, self.cache = self._run_step(torch.from_numpy(toks))
+        logits, self.cache = self._run_step(pinned_copy(toks, self.model.device))
         nxt = self._sample(logits[:, -1])
         t1 = time.perf_counter()
+        # torchcheck: disable=hot-sync -- the ONE deliberate per-tick sync: sampled tokens must reach the host to be emitted
         # staticcheck: disable=hot-sync -- the ONE deliberate per-tick sync: sampled tokens must reach the host to be emitted
         nxt = np.asarray(nxt.cpu())
         t2 = time.perf_counter()
@@ -1008,6 +1009,7 @@ class SlotScheduler(VirtualClockMixin):
         if self._screen_logits:
             # NaN/Inf screen on this step's logits — a writable HOST
             # copy: injected poison lands here, device state stays clean
+            # torchcheck: disable=hot-sync -- NaN screen needs a writable host copy; only taken when --screen-logits is on (chaos runs)
             # staticcheck: disable=hot-sync -- NaN screen needs a writable host copy; only taken when --screen-logits is on (chaos runs)
             last = np.array(logits[:, -1].float().cpu(), np.float32)
             for slot, sess in active:
@@ -1034,9 +1036,11 @@ class SlotScheduler(VirtualClockMixin):
                 self._finish(slot, sess)
 
     def _run_step(self, tokens: torch.Tensor):  # staticcheck: hotpath
+        """One decode step; ``tokens`` from ``pinned_copy``."""
         if self._executor is None:
             return self._progs.step(self.params, self.cache, tokens)
-        state = self._executor({"tokens": tokens.to(self.model.device),
+        state = self._executor({"tokens": tokens.to(self.model.device,
+                                                    non_blocking=True),
                                 "cache": self.cache})
         return state["logits"], state["cache"]
 
@@ -1069,12 +1073,14 @@ class SlotScheduler(VirtualClockMixin):
             toks[slot, 0] = sess.next_input_token
             steps_left[slot] = plan[slot]
         t0 = time.perf_counter()
+        dev = self.model.device
         tok_mat, self.cache = self._progs.steps(
-            self.params, self.cache, torch.from_numpy(toks),
-            torch.from_numpy(steps_left), self.gen, horizon=K,
+            self.params, self.cache, pinned_copy(toks, dev),
+            pinned_copy(steps_left, dev), self.gen, horizon=K,
             temperature=self.temperature, top_k=self.top_k,
             eos_id=self.eos_id)
         t1 = time.perf_counter()
+        # torchcheck: disable=hot-sync -- the ONE deliberate macro-tick sync: up to K*slots sampled tokens in one transfer
         # staticcheck: disable=hot-sync -- the ONE deliberate macro-tick sync: up to K*slots sampled tokens in one transfer
         tok_mat = np.array(tok_mat.cpu())   # a writable host copy
         t2 = time.perf_counter()

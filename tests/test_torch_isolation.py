@@ -34,7 +34,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         ROOT / "scripts" / "moe_int4_probe.py",
         ROOT / "scripts" / "dequantize_probe.py",
         ROOT / "scripts" / "moe_determinism_probe.py",
-        ROOT / "scripts" / "sampling_probe.py"] + sorted(
+        ROOT / "scripts" / "sampling_probe.py",
+        ROOT / "scripts" / "sync_probe.py"] + sorted(
             (ROOT / "examples" / "torch").glob("*.py"))
     assert len(files) > 20
     assert {f.name for f in files if f.parent.name == "torch"} == {
@@ -47,7 +48,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "training/train_loop.py", "launch/dryrun.py", "analysis/analytic.py",
             "analysis/roofline.py", "analysis/collectives.py",
             "analysis/links.py", "kernels/dequantize/ops.py",
-            "kernels/dequantize/ref.py"} <= names
+            "kernels/dequantize/ref.py", "analysis/staticcheck/core.py",
+            "analysis/staticcheck/cfgutil.py", "analysis/staticcheck/cli.py",
+            "analysis/staticcheck/rules/hot_sync.py",
+            "analysis/staticcheck/rules/recompile.py",
+            "analysis/staticcheck/rules/donation.py",
+            "analysis/staticcheck/rules/prng.py",
+            "analysis/staticcheck/rules/refcount.py"} <= names
     # ml_dtypes too: the machine with the card does not have it
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
