@@ -15,14 +15,17 @@ Phases, in order; each raises on failure and nothing catches:
     masked, G=16, hd 32) shapes, and at the first decode step of the
     main paths that run it (qwen2.5-7b; zamba2-1.2b's shared block and
     musicgen-large, Hq=Hkv=32 hd 64; qwen2-moe-a2.7b, Hq=Hkv=16;
-    qwen2-vl-2b, Hq 12 Hkv 2 (G=6); S=2081); each case logs its path (``ops.path_for``: mma for bf16,
+    qwen2-vl-2b, Hq 12 Hkv 2 (G=6); S=2081), and at the long shapes of
+    phase 23 (S=16417 at G=7 and at G=4 / Hkv 8, and B=17 Hkv 8 S=16384,
+    one split a pair, so a block walks four 4096-slot windows of mask
+    bits, rows ragged across the window edges); each case logs its path (``ops.path_for``: mma for bf16,
     one tensor-core launch; cuda_core for f32), two calls must be
     bit-equal, and NaN written into every masked slot's K/V row must
     leave the output bit-equal (and so within tolerance of the plain
     version on the clean cache); ptxas' registers and spills of
     ``decode_attention_mma``; times of the kernel, the plain version and
     ``F.scaled_dot_product_attention`` (timed only) at the four main-path
-    shapes.
+    shapes and the three long ones.
  3. int4-matmul kernel against its plain version at the qwen2.5-7b layer
     shapes, M=1 and M=4 (the GEMV: batch-1 decode and the paged step's 4
     slots; bf16 and f32, two calls bit-equal, one launch each) and M=512
@@ -42,12 +45,13 @@ Phases, in order; each raises on failure and nothing catches:
  4. paged-decode-attention kernel against its plain version in bf16, f32
     and int8 KV at the paged serving shape (4 slots of ~2100 live tokens,
     page 16, G=7, hd 128) and on ragged lengths with a length-0 lane at
-    pages 4, 8 and 32, each case with its path (``ops.path_for``: mma for
+    pages 4, 8 and 32, and one slot of 16384 tokens (page 16, a 1024-page
+    table), each case with its path (``ops.path_for``: mma for
     bf16 q, cuda_core for f32); two calls must be bit-equal and a
     poisoned garbage page 0 must leave the output bit-equal; ptxas'
     registers and spills of the mma kernel; times of the kernel, the
     plain version and gather + ``F.scaled_dot_product_attention`` (timed
-    only), bf16 and int8.
+    only), bf16 and int8, at the serving shape and the 16384-token slot.
  5. RMSNorm kernel against its plain version, bf16 and f32, D in {1536,
     2048, 2560, 3584, 4096, 5120} x R in {1, 4, 512, 2048} (every width and
     row count of the main paths), with and without w, and a strided
@@ -88,7 +92,9 @@ Phases, in order; each raises on failure and nothing catches:
     bytes at 3.35 TB/s) at both shapes, int4 and int8 to bf16.
  7. the decode-attention kernel inside the real path: a qwen2.5-7b-width
     model with 2 layers in f32; greedy tokens of ``decode_backend="cuda"``
-    and ``"sdpa"`` must be identical over 16 tokens.
+    and ``"sdpa"`` must be identical over 16 tokens, and so must those of
+    a third run whose prefill takes the q-block-chunked branch (forced by
+    ``attention.configure(threshold=256, chunk_q=128)``, restored after).
  8. the paged kernel inside the real path: the same f32 model serves 4
     sessions through 2 paged slots (``generate_continuous``, chunked
     prefill); each session's greedy tokens on the "cuda" route must equal
@@ -98,7 +104,9 @@ Phases, in order; each raises on failure and nothing catches:
     mamba2-2.7b-width model with 2 layers and a zamba2-1.2b-width model
     with 4, f32, weights drawn once on the CPU and copied to the card;
     16 greedy tokens must be identical and the first-step logits agree
-    within 1e-4 x max|logit|.
+    within 1e-4 x max|logit|; then zamba2-1.2b again with its sliding
+    window cut to 128, so the 256-token prompt wraps the ring at prefill
+    (the cache must be the 128-slot ring) and decode keeps wrapping it.
 9b. the host KV tier inside the real path: a qwen2.5-7b-width model
     with 2 layers in f32 serves 6 sessions through 2 paged slots
     (chunked prefill) at full backing and on a pool cut to 13 pages:
@@ -218,7 +226,9 @@ Phases, in order; each raises on failure and nothing catches:
     statuses, tokens in the vocabulary, pools balance); a seeded poisson
     trace replayed through the tiered scheduler with priority preemption
     on and off, with ``slo_report``'s TTFT and per-token p50/p95/p99 and
-    goodput under the SLO.  Its numbers go on a ``{"host_tier": ...}``
+    goodput under the SLO.  The busy share's profiled rerun serves the
+    first 4 of the 8 sessions (reading back the trace of all 8 took
+    three quarters of the phase).  Its numbers go on a ``{"host_tier": ...}``
     line.
 17. the moe, vlm and audio families at full width (bf16, random weights
     drawn on the card), through the engine's graph step with phase 10's
@@ -276,12 +286,14 @@ Phases, in order; each raises on failure and nothing catches:
 20. the analysis and the dry run (``repro_torch.analysis``,
     ``launch/dryrun.py``).  (a) ``python -m repro_torch.launch.dryrun``
     in a subprocess of its own (a fake world of 256 / 512 ranks is
-    process-global; phase 19's group is gone by then) on four full-width
-    cells: qwen2.5-3b ``train_4k`` on ``pod``, qwen2.5-3b ``decode_32k``
-    on ``multipod``, llama4-scout-17b-a16e ``decode_32k`` on ``pod`` (the
+    process-global), started right after phase 1 in a full run, so its
+    trace (about three minutes, on one host core; no GPU) overlaps the
+    card's phases, and waited for here, on five full-width cells:
+    qwen2.5-3b ``train_4k`` on ``pod``, qwen2.5-3b ``decode_32k`` on
+    ``multipod``, llama4-scout-17b-a16e ``decode_32k`` on ``pod`` (the
     int4_fused weights), mamba2-2.7b ``long_500k`` on ``pod`` and
     llama4-scout-17b-a16e ``train_4k`` on ``pod`` (the moe's token
-    reshapes on an FSDP data split; about 110 s of trace), into
+    reshapes on an FSDP data split; about 100 s of trace), into
     ``build/dryrun/``; each must end ``ok`` (a failed cell's traceback is
     printed); each cell's trace seconds, collective counts by kind, wire
     bytes and argument bytes a rank, FLOPs a rank.  (b) the one-card
@@ -325,7 +337,29 @@ Phases, in order; each raises on failure and nothing catches:
     saw that no finding and no justified suppression on its chain
     accounts for fails the phase.  Its numbers go on a
     ``{"staticcheck": ...}`` line.
-23. the kernels line: one JSON object with every ported kernel's
+23. the paper's decode matrix: batch-1 bf16 greedy decode at full width
+    and depth (random weights drawn on the card, one model per arch,
+    the card freed between archs) through ``DecodeEngine``'s graph step,
+    qwen2.5-7b, mistral-7b-v0.3 and llama-3.1-8b at ctx 2048, 4096, 8192
+    and 16384 (the prefill q-block-chunked above 8192), and zamba2-1.2b
+    at 8192 (its 4096-slot ring wraps at prefill and in decode).  Per
+    cell: a 2-token request (128-token prompt, the cell's max_len)
+    captures the step, then two timed streamed
+    requests (62 replayed steps): kernel 1 launched once a layer and
+    step, kernel 5 phase 10's count (and kernel 4 once a Mamba2 layer and
+    step on zamba2), equal tokens, the cache a 4096-slot ring on zamba2;
+    graph p50, the eager p50 on kernel 1 and on the sdpa route (the
+    paper's setting: eager, no graphs), floor and R_floor of each arm,
+    the prefill wall, peak allocated memory; first-step logits finite and
+    cuda against sdpa within 5e-2 x max|logit|.  At each arch's longest
+    context also a fused request (tokens equal to the streamed), and 4
+    eager steps under the profiler after 4 traced as its warm-up: one
+    ``decode_attention_mma`` kernel a layer and step (a slack of one for
+    a kernel the trace loses) and no partial/merge kernel, the busy
+    share, top kernels and kernel 1's in-step device µs a launch against
+    its bound.  qwen2.5-7b at 2048 is phase 10's cell (its numbers, not
+    run again).  Its numbers go on a ``{"matrix": ...}`` line.
+24. the kernels line: one JSON object with every ported kernel's
     numbers (all five, kernel 5's backward and the dequantisation
     kernel, both port-only: no TPU kernel is left to port; ``device_us`` and
     ``b2b_us`` for kernels 4 and 5, null for the others); ``launches`` sums
@@ -336,8 +370,9 @@ Phases, in order; each raises on failure and nothing catches:
     18c's and 19c's launches; 19b and 19c's DTensor arm are paths of
     their own in ``launches_by_path``, as are phase 10c's sampled paths.  ``dequantize`` counts phase 17's
     int4 moe cell and phase 21's three dequantising 7b paths (whose
-    int4_fused path adds to kernel 3's row).
-24. last line: ``{"ok": true, "device": {...}}``.
+    int4_fused path adds to kernel 3's row).  Phase 23's cells are paths
+    of their own for kernels 1, 4 and 5.
+25. last line: ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --only kernels
 
@@ -346,8 +381,8 @@ the ``ok`` line: the quick call for tuning a kernel.  ``--only families``
 runs phases 1, 9c and 17 only, ``--only train`` phases 1, 5b and 18,
 ``--only dist`` phases 1 and 19, ``--only analysis`` phases 1 and 20,
 ``--only examples`` phases 1 and 21, ``--only sampling`` phases 1 and
-10c, ``--only staticcheck`` phases 1 and 22 (no kernels line, no ``ok``
-line).
+10c, ``--only staticcheck`` phases 1 and 22, ``--only matrix`` phases 1
+and 23 (no kernels line, no ``ok`` line).
 Every phase prints its name on a line of its own before it starts.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -358,6 +393,7 @@ tensor cores).
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import functools
 import gc
@@ -473,6 +509,17 @@ def rel_err(out, ref) -> tuple:
     return err, err / scale
 
 
+def row_rel_err(out, ref) -> float:
+    """The largest error of a row (the last dim) over that row's own
+    max|ref|, without rel_err's floor of 1: a softmax over thousands of
+    slots averages its output far below 1, where a floor of 1 would hide
+    a lost split.  A row whose ref is all zero must be zero."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1)
+    return float(torch.where(scale > 0, err / scale.clamp_min(1e-30),
+                             torch.where(err > 0, float("inf"), 0.0)).max())
+
+
 # ---------------------------------------------------------------- phase 1
 def setup():
     from repro_torch.kernels import _build
@@ -506,6 +553,26 @@ def attention_case(dev, dtype, B, Hq, Hkv, hd, S, mask, seed):
     k = torch.randn((B, S, Hkv, hd), generator=g, device=dev).to(dtype)
     v = torch.randn((B, S, Hkv, hd), generator=g, device=dev).to(dtype)
     return q, k, v, mask.to(dev)
+
+
+# the long-context shapes of phase 23's matrix: the first decode step at
+# ctx 16384 of qwen2.5-7b (G=7) and of mistral-7b / llama-3.1-8b (G=4),
+# and 17 sequences at Hkv 8, which the split plan gives one split a
+# (b, KV head) pair, so each block walks its 16384 slots as four windows
+# of mask bits (kWindow = 4096 in csrc/decode_attention.cu); rows ragged
+# across the window edges, one of them empty
+LONG_S = 16384
+LONG_LENS = (16384, 16383, 12289, 12288, 8193, 8192, 8191, 4097, 4096, 4095,
+             2048, 1000, 65, 64, 17, 1, 0)
+LONG_CASES = [
+    ("qwen2.5-7b S=16384 (G=7), first decode step", 1, 28, 4, 128, LONG_S + NEW + 1,
+     torch.arange(LONG_S + NEW + 1) <= LONG_S),
+    ("mistral-7b / llama-3.1-8b S=16384 (G=4, Hkv 8), first decode step", 1, 32, 8,
+     128, LONG_S + NEW + 1, torch.arange(LONG_S + NEW + 1) <= LONG_S),
+    ("B=17 Hkv=8 S=16384: one split a pair, the window walk past kWindow", 17, 32, 8,
+     128, LONG_S, torch.arange(LONG_S)[None, :] < torch.tensor(LONG_LENS)[:, None]),
+]
+LONG_KEYS = ("s16k_g7", "s16k_g4", "s16k_b17_walk")
 
 
 def check_decode_attention(dev, timer):
@@ -546,7 +613,7 @@ def check_decode_attention(dev, timer):
          torch.arange(S_main) <= PROMPT),
     ]
     for dtype in (torch.bfloat16, torch.float32):
-        for i, (label, B, Hq, Hkv, hd, S, mask) in enumerate(cases):
+        for i, (label, B, Hq, Hkv, hd, S, mask) in enumerate(cases + LONG_CASES):
             q, k, v, m = attention_case(dev, dtype, B, Hq, Hkv, hd, S, mask, i)
             path = ops.path_for(q, k)
             out = ops.decode_attention(q, k, v, m)
@@ -555,6 +622,9 @@ def check_decode_attention(dev, timer):
             err, rel = rel_err(out, want)
             ok = rel <= TOL[dtype] and path == ("mma" if dtype == torch.bfloat16
                                                 else "cuda_core")
+            row_rel = row_rel_err(out, want) if i >= len(cases) else None
+            if row_rel is not None:      # the long shapes: each row to its own scale
+                ok = ok and row_rel <= TOL[dtype]
             if mask.dim() == 2:
                 dead = ~mask.any(dim=1)
                 ok = ok and bool(out[dead.to(dev)].eq(0).all())
@@ -570,43 +640,49 @@ def check_decode_attention(dev, timer):
             ok = ok and repeat and nan_ok
             log(f"  {str(dtype)[6:]:8s} {label} ({path} path): B={B} Hq={Hq} Hkv={Hkv} "
                 f"hd={hd} S={S}: max_abs_err {err:.3g} (tol {TOL[dtype]:g} x "
-                f"max(1,|plain|)), two calls bit-equal {repeat}, NaN in the "
+                f"max(1,|plain|))"
+                + ("" if row_rel is None else f", worst row's error / its max|plain| "
+                   f"{row_rel:.3g} (tol {TOL[dtype]:g})")
+                + f", two calls bit-equal {repeat}, NaN in the "
                 f"{int(masked.sum())} masked rows: bit-equal and within tol of the "
                 f"plain version on the clean cache {nan_ok}: {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"decode_attention {label} {dtype} disagrees")
             del q, k, v, m
 
-    # times at the main paths' shapes (bf16, first decode step)
+    # times at the main paths' shapes (bf16, first decode step), then at
+    # the long shapes
     at = {}
-    for label, B, Hq, Hkv, hd, S, mask in cases[-4:]:
+    for key, (label, B, Hq, Hkv, hd, S, mask) in zip(
+            (4, 32, 16, 2) + LONG_KEYS, cases[-4:] + LONG_CASES):
         q, k, v, m = attention_case(dev, torch.bfloat16, B, Hq, Hkv, hd, S, mask, 99)
         out = ops.decode_attention(q, k, v, m)
         err, _ = rel_err(out, ref.decode_attention_ref(q, k, v, m))
         ms = timer(lambda: ops.decode_attention(q, k, v, m))
         plain_ms = timer(lambda: ref.decode_attention_ref(q, k, v, m))
         qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-        am = m.reshape(1, 1, 1, S)
+        am = m.reshape(-1, 1, 1, S)
         lib_ms = timer(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=am, enable_gqa=True))
-        n_valid = int(m.sum()) * B
+        n_valid = int(m.sum()) * (B if m.dim() == 1 else 1)
         nbytes = (q.numel() * 2 + 2 * n_valid * Hkv * hd * 2 + m.numel()
                   + out.numel() * 2)
-        flops = 4 * B * Hq * (n_valid // B) * hd
+        flops = 4 * Hq * n_valid * hd
         b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
         n_split = ops.mma_split_plan(B, Hkv, S, sms)
         log(f"  times at {label} (bf16, {n_valid} valid slots, {n_split} splits, "
             f"{ops.path_for(q, k)} path): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.6f} ms "
             f"({b_by}: {nbytes / 1e6:.3f} MB)")
-        at[Hkv] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        at[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms, n_split=n_split,
                        shape=f"bf16 B={B} Hq={Hq} Hkv={Hkv} hd={hd} S={S}, "
                              f"{n_valid} valid")
         del q, k, v, m
     main = at[4]
     extra = {f"{arch}_{k}": v for arch, hkv in (("zamba2", 32), ("qwen2_moe", 16),
-                                                ("qwen2_vl", 2))
+                                                ("qwen2_vl", 2)) + tuple(
+                                                    zip(LONG_KEYS, LONG_KEYS))
              for k, v in at[hkv].items()}
     return dict(name="decode_attention", route="cuda", path="mma",
                 source="src/repro_torch/csrc/decode_attention.cu",
@@ -838,6 +914,8 @@ def log_kernel_build(source, kernel):
 PAGE = 16
 PAGED_LENGTHS = (2100, 2081, 2117, 2064)     # live tokens per slot
 PAGED_SPAN = 2176                            # 136 pages of 16: max_len of phase 9
+# one slot of 16384 live tokens: page 16, a 1024-page block table
+PAGED_LONG = ("one slot of 16384 tokens, page 16", (LONG_S,), PAGE, LONG_S)
 
 
 def paged_case(dev, dtype, quant, lengths, page, span, seed, Hq=28, Hkv=4, hd=128):
@@ -897,7 +975,8 @@ def check_paged_decode_attention(dev, timer):
     cases = [("serving shape", PAGED_LENGTHS, PAGE, PAGED_SPAN),
              ("ragged, length-0 lane, page 4", (1000, 0, 517, 1), 4, 1024),
              ("ragged, length-0 lane, page 8", (0, 777, 8, 1023), 8, 1024),
-             ("ragged, length-0 lane, page 32", (300, 33, 0, 2047), 32, 2048)]
+             ("ragged, length-0 lane, page 32", (300, 33, 0, 2047), 32, 2048),
+             PAGED_LONG]
     variants = [("bf16", torch.bfloat16, False), ("f32", torch.float32, False),
                 ("int8 KV", torch.bfloat16, True)]
     log_kernel_build("paged_decode_attention", "paged_attention_mma")
@@ -911,7 +990,10 @@ def check_paged_decode_attention(dev, timer):
             args = paged_case(dev, dtype, quant, lengths, page, span, seed=i)
             out = ops.paged_decode_attention(*args)
             torch.cuda.synchronize()
-            err, rel = rel_err(out, paged_plain(*args))
+            want = paged_plain(*args)
+            err, rel = rel_err(out, want)
+            # the long slot: each row to its own scale, as phase 2's long shapes
+            row_rel = row_rel_err(out, want) if label == PAGED_LONG[0] else None
             repeat = torch.equal(ops.paged_decode_attention(*args), out)
             zeros = all(bool(out[b].eq(0).all())
                         for b, n in enumerate(lengths) if n == 0)
@@ -922,10 +1004,14 @@ def check_paged_decode_attention(dev, timer):
             poisoned = ops.paged_decode_attention(*args)
             torch.cuda.synchronize()
             same = torch.equal(poisoned, out)
-            ok = rel <= TOL[dtype] and zeros and same and repeat
+            ok = (rel <= TOL[dtype] and zeros and same and repeat
+                  and (row_rel is None or row_rel <= TOL[dtype]))
             log(f"  {name:8s} {label} ({ops.path_for(args[0], args[1])} path): "
                 f"lengths {lengths}: max_abs_err {err:.3g} "
-                f"(tol {TOL[dtype]:g} x max(1,|plain|)), length-0 lanes zero "
+                f"(tol {TOL[dtype]:g} x max(1,|plain|))"
+                + ("" if row_rel is None else f", worst row's error / its max|plain| "
+                   f"{row_rel:.3g} (tol {TOL[dtype]:g})")
+                + ", length-0 lanes zero "
                 f"{zeros}, two calls bit-equal {repeat}, poisoned page 0 "
                 f"bit-equal {same}: {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -935,39 +1021,43 @@ def check_paged_decode_attention(dev, timer):
     rows = []
     for name, quant in (("paged_decode_attention", False),
                         ("paged_decode_attention_int8", True)):
-        args = paged_case(dev, torch.bfloat16, quant, PAGED_LENGTHS, PAGE,
-                          PAGED_SPAN, seed=99)
-        q = args[0]
-        out = ops.paged_decode_attention(*args)
-        err, _ = rel_err(out, paged_plain(*args))
-        ms = timer(lambda: ops.paged_decode_attention(*args))
-        plain_ms = timer(lambda: paged_plain(*args))
-        lib_ms = timer(lambda: gather_sdpa(*args))
-        # the kernel reads each live token's K/V (codes and scales) once,
-        # the block-table entries of the live pages and the lengths; q in,
-        # out out
-        live_pages = sum(-(-n // PAGE) for n in PAGED_LENGTHS)
-        tok_bytes = ops.kv_token_bytes(4, 128, 2, "int8" if quant else "none")
-        nbytes = (sum(PAGED_LENGTHS) * tok_bytes + 4 * live_pages
-                  + 4 * len(PAGED_LENGTHS) + q.numel() * 2 + out.numel() * 2)
-        flops = 4 * 28 * 128 * sum(PAGED_LENGTHS)
-        b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
-        kv = "int8 codes + f32 scales" if quant else "bf16"
-        log(f"  times, {kv} KV, 4 slots {PAGED_LENGTHS} tokens, page {PAGE}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, gather + "
-            f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-            f"{b_ms:.6f} ms ({b_by}: {nbytes} bytes of live tokens, their "
-            f"block-table entries, lengths, q and out)")
+        at = {}
+        for key, (_, lengths, page, span) in (("serving", cases[0]), ("long", PAGED_LONG)):
+            args = paged_case(dev, torch.bfloat16, quant, lengths, page, span, seed=99)
+            q = args[0]
+            out = ops.paged_decode_attention(*args)
+            err, _ = rel_err(out, paged_plain(*args))
+            ms = timer(lambda: ops.paged_decode_attention(*args))
+            plain_ms = timer(lambda: paged_plain(*args))
+            lib_ms = timer(lambda: gather_sdpa(*args))
+            # the kernel reads each live token's K/V (codes and scales)
+            # once, the block-table entries of the live pages and the
+            # lengths; q in, out out
+            live_pages = sum(-(-n // page) for n in lengths)
+            tok_bytes = ops.kv_token_bytes(4, 128, 2, "int8" if quant else "none")
+            nbytes = (sum(lengths) * tok_bytes + 4 * live_pages + 4 * len(lengths)
+                      + q.numel() * 2 + out.numel() * 2)
+            flops = 4 * 28 * 128 * sum(lengths)
+            b_ms, b_by = bound_ms(nbytes, flops, torch.bfloat16)
+            kv = "int8 codes + f32 scales" if quant else "bf16"
+            log(f"  times, {kv} KV, {len(lengths)} slot(s) {lengths} tokens, page "
+                f"{page} ({ops.mma_split_plan(len(lengths), 4, span, sms, quant)} "
+                f"splits a pair): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, gather + "
+                f"F.scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+                f"{b_ms:.6f} ms ({b_by}: {nbytes} bytes of live tokens, their "
+                f"block-table entries, lengths, q and out)")
+            at[key] = dict(
+                path=ops.path_for(q, args[1]), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                shape=f"q bf16 B={len(lengths)} Hq=28 Hkv=4 hd=128, {kv} pools, page "
+                      f"{page}, lengths {list(lengths)}")
+            del args
         rows.append(dict(
-            name=name, route="cuda", path=ops.path_for(q, args[1]),
+            name=name, route="cuda",
             source="src/repro_torch/csrc/paged_decode_attention.cu",
             replaces="src/repro/kernels/paged_decode_attention/"
                      "paged_decode_attention.py:136",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms,
-            shape=f"q bf16 B=4 Hq=28 Hkv=4 hd=128, {kv} pools, page {PAGE}, "
-                  f"lengths {list(PAGED_LENGTHS)}"))
-        del args
+            **at["serving"], **{f"s16k_{k}": v for k, v in at["long"].items()}))
     return rows
 
 
@@ -1360,9 +1450,11 @@ def prompt_batch(vocab, dev, n=None, seed=0):
 
 def check_f32_tokens(dev):
     from repro_torch.configs import get_config
+    from repro_torch.models import attention
     from repro_torch.models.model import Model
     from repro_torch.serving import DecodeEngine
-    log("== phase 7: kernel inside the real path (qwen2.5-7b width, 2 layers, f32)")
+    log("== phase 7: kernel inside the real path (qwen2.5-7b width, 2 layers, f32), "
+        "unchunked and q-block-chunked prefill")
     cfg = get_config("qwen2.5-7b").replace(n_layers=2, dtype="float32")
     model = Model(cfg, decode_backend="cuda", device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(1))
@@ -1379,6 +1471,21 @@ def check_f32_tokens(dev):
         f"{'identical' if same else 'DIFFER'}")
     if not same:
         raise AssertionError("f32 greedy tokens differ between cuda and sdpa")
+    # the q-block-chunked prefill (the path of prompts above 8192 tokens),
+    # forced at this size through the port's own knob
+    model.decode_backend = "cuda"
+    saved = (attention.CHUNKED_ATTN_THRESHOLD, attention.CHUNK_Q)
+    attention.configure(threshold=256, chunk_q=128)
+    try:
+        chunked = DecodeEngine(model, params).generate_streamed(
+            batch, max_len=512 + 17, n_new=16).tokens.cpu()
+    finally:
+        attention.configure(*saved)
+    same = torch.equal(chunked, toks["cuda"])
+    log(f"  greedy tokens cuda, prefill q-block-chunked (threshold 256, chunk_q 128: "
+        f"4 blocks): {'identical to' if same else 'DIFFER from'} the unchunked run's")
+    if not same:
+        raise AssertionError("f32 greedy tokens of the chunked prefill differ")
     del params, model
     torch.cuda.empty_cache()
 
@@ -1418,17 +1525,33 @@ def launched():
             for name, n in launch_counts().items()}
 
 
-def eager_p50(engine, batch, tok):
+def eager_p50(engine, batch, tok, backend=None):
     """The eager arm's p50 (ms): ``measure_cell`` (5 warm-up + 30
     measured steps, synchronised) of plain ``decode_step`` calls over a
-    prefilled cache of its own, one session."""
-    from repro_torch.core.protocol import measure_cell
+    prefilled cache of its own, one session; on the model's decode
+    backend, or on ``backend`` for these calls."""
     with torch.inference_mode():
         cache = engine.new_cache(1, PROMPT + 64)
         engine.model.prefill(engine.params, batch, cache)
-        cell = measure_cell(lambda: engine.model.decode_step(engine.params, cache, tok)[0],
-                            name="eager")
+        p50 = eager_steps_p50(engine, cache, tok, backend)
     del cache
+    return p50
+
+
+def eager_steps_p50(engine, cache, tok, backend=None):
+    """``measure_cell`` of plain ``decode_step`` calls from ``cache``'s
+    position (35 steps: the cache needs that many free slots), on
+    ``backend`` if given; the decode backend is restored after."""
+    from repro_torch.core.protocol import measure_cell
+    model = engine.model
+    before = model.decode_backend
+    model.decode_backend = backend or before
+    try:
+        with torch.inference_mode():
+            cell = measure_cell(lambda: model.decode_step(engine.params, cache, tok)[0],
+                                name="eager")
+    finally:
+        model.decode_backend = before
     return cell.p50_ms
 
 
@@ -1455,6 +1578,7 @@ def main_path(dev):
     from repro_torch.serving import DecodeEngine
     log("== phase 10: main path, qwen2.5-7b full width (28 layers, bf16), "
         f"prompt {PROMPT}, {NEW} new tokens")
+    torch.cuda.reset_peak_memory_stats(dev)
     cfg = get_config("qwen2.5-7b")
     model = Model(cfg, decode_backend="cuda", device=dev)
     t0 = time.perf_counter()
@@ -1492,15 +1616,23 @@ def main_path(dev):
     step_s = runs[0].step_times_s + runs[1].step_times_s
     p50 = statistics.median(step_s) * 1e3
     p50_eager = eager_p50(engine, batch, runs[0].tokens[:, :1])
+    p50_sdpa = eager_p50(engine, batch, runs[0].tokens[:, :1], backend="sdpa")
     fc = floor_cell(cfg, GPU_H100, PROMPT)
     log(f"  p50 step {p50:.4f} ms (engine graph step, streamed, n={len(step_s)}); "
-        f"eager p50 {p50_eager:.4f} ms (plain decode_step calls, measure_cell); "
+        f"eager p50 {p50_eager:.4f} ms (plain decode_step calls, measure_cell), "
+        f"on the sdpa route {p50_sdpa:.4f} ms; "
         f"analytic floor {fc.t_floor_ms:.4f} ms (floor_cell qwen2.5-7b, "
         f"{GPU_H100.name}, ctx {PROMPT}); R_floor {fc.t_floor_ms / p50:.4f} "
-        f"(eager {fc.t_floor_ms / p50_eager:.4f})")
+        f"(eager {fc.t_floor_ms / p50_eager:.4f}, eager sdpa "
+        f"{fc.t_floor_ms / p50_sdpa:.4f})")
     log("  tok/s: " + ", ".join(f"{r.tokens_per_s:.2f}" for r in runs)
         + " (streamed, streamed, fused)")
     MEASURED["qwen2.5-7b decode graph p50 ms"] = p50
+    # phase 23's qwen2.5-7b ctx 2048 cell (not run again there)
+    MEASURED["matrix qwen2.5-7b 2048"] = matrix_numbers(
+        p50, p50_eager, p50_sdpa, fc.t_floor_ms, pre_bf16,
+        torch.cuda.max_memory_allocated(dev),
+        f"phase 10 (streamed n={len(step_s)}; prefill median of 3)")
 
     # first decode step: kernel route against the sdpa route
     tok = runs[0].tokens[:, :1]
@@ -2095,7 +2227,11 @@ def paged_serving(dev):
 
 
 # ---------------------------------------------------------------- phases 9, 13, 14
-SSM_ARCHS = (("mamba2-2.7b", 2), ("zamba2-1.2b", 4))   # layers in phase 9
+# phase 9's archs: (name, layers, sliding window); the last is zamba2-1.2b
+# with its window cut to 128 slots, so the 256-token prompt wraps the
+# ring at prefill and decode wraps it again
+SSM_ARCHS = (("mamba2-2.7b", 2, None), ("zamba2-1.2b", 4, None),
+             ("zamba2-1.2b", 4, 128))
 
 
 def to_device(tree, dev):
@@ -2113,10 +2249,14 @@ def check_f32_ssm_tokens(dev):
     from repro_torch.models.model import Model
     from repro_torch.serving import DecodeEngine
     log("== phase 9: kernels 4, 5 (and 1) inside the real path, card against "
-        "CPU: mamba2-2.7b and zamba2-1.2b width, f32, prompt 256, 16 tokens")
+        "CPU: mamba2-2.7b and zamba2-1.2b width, f32, prompt 256, 16 tokens; "
+        f"zamba2-1.2b again with its sliding window cut to {SSM_ARCHS[-1][2]} (the "
+        "ring wraps)")
     prompt = 256
-    for name, layers in SSM_ARCHS:
+    for name, layers, window in SSM_ARCHS:
         cfg = get_config(name).replace(n_layers=layers, dtype="float32")
+        if window:
+            cfg = cfg.replace(sliding_window=window)
         cpu_model = Model(cfg, device="cpu")
         cpu_params = cpu_model.init(torch.Generator().manual_seed(3))
         batch = prompt_batch(cfg.vocab_size, "cpu", prompt, seed=3)
@@ -2130,11 +2270,16 @@ def check_f32_ssm_tokens(dev):
             with torch.inference_mode():
                 _, cache = eng.prefill(b, prompt + 17)
                 logits, _ = model.decode_step(params, cache, toks[:, :1])
+            if window and cache["k"].shape[2] != window:
+                raise AssertionError(f"{name}: a {cache['k'].shape[2]}-slot cache, "
+                                     f"want the {window}-slot ring")
             out[label] = (toks.cpu(), logits.float().cpu())
         same = torch.equal(out["cpu"][0], out["cuda"][0])
         diff = float((out["cuda"][1] - out["cpu"][1]).abs().max())
         scale = float(out["cpu"][1].abs().max())
-        log(f"  {name} ({layers} layers): greedy tokens cuda "
+        ring = (f", a {window}-slot ring wrapped at prefill and again in decode"
+                if window else "")
+        log(f"  {name} ({layers} layers{ring}): greedy tokens cuda "
             f"{out['cuda'][0][0].tolist()}: {'identical to' if same else 'DIFFER from'}"
             f" cpu; first-step logits max_abs_diff {diff:.4g}, max|logit| "
             f"{scale:.4g} (tol 1e-4 x max|logit|)")
@@ -2699,6 +2844,9 @@ def log_probe(probe, label):
         "per migration)")
 
 
+BUSY_SESSIONS = 4   # of phase 16's 8: the profiled rerun that reads the busy share
+
+
 @torch.inference_mode()
 def tiered_serving(dev, prefill_wall_ms):
     """Phase 16: the host tier at qwen2.5-7b full width."""
@@ -2801,9 +2949,11 @@ def tiered_serving(dev, prefill_wall_ms):
                                  f"kernel 2 {cfg.n_layers} and kernel 5 {norms} "
                                  "times per device step")
         check_balanced(sched, f"phase 16, {label}")
-        # the device's busy share over a second run of the same cell
+        # the device's busy share over a second run of the cell's first
+        # BUSY_SESSIONS sessions (reading back the profiler's trace of all
+        # 8 took most of the phase's wall)
         sched2 = SlotScheduler(model, params, kv_dtype=kv_dtype, steps_per_tick=K, **kw)
-        for r in reqs:
+        for r in reqs[:BUSY_SESSIONS]:
             sched2.submit(r)
         t_rerun = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2813,10 +2963,14 @@ def tiered_serving(dev, prefill_wall_ms):
             wall = time.perf_counter() - t0
         busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
         log(f"    busy share {busy / wall:.1%} ({busy:.3f} s of device work, kernels "
-            f"and copies, in a profiled rerun of {wall:.3f} s wall; the rerun and "
-            f"its trace took {time.perf_counter() - t_rerun:.1f} s)")
+            f"and copies, in a profiled rerun of the first {BUSY_SESSIONS} sessions, "
+            f"{wall:.3f} s wall; the rerun and its trace took "
+            f"{time.perf_counter() - t_rerun:.1f} s)")
         out["cells"][label] = dict(
-            p50_ms=p50, tok_s=res.tokens_per_s, busy_share=busy / wall,
+            p50_ms=p50, tok_s=res.tokens_per_s,
+            # a run of its own: the first BUSY_SESSIONS sessions, profiled
+            busy_rerun=dict(sessions=BUSY_SESSIONS, busy_share=busy / wall,
+                            device_s=busy, wall_s=wall),
             parks=probe.parks, restores=res.tier_restores,
             pages_spilled=res.pages_spilled, pages_restored=res.pages_restored,
             save_ms=[t for _, t in probe.saves], save_pages=[n for n, _ in probe.saves],
@@ -2942,7 +3096,7 @@ def check_f32_family_tokens(dev):
     log(f"  phase 9c took {time.perf_counter() - t_phase:.1f} s")
 
 
-def first_step_cuda_vs_sdpa(model, engine, batch, max_len, tok):
+def first_step_cuda_vs_sdpa(model, engine, batch, max_len, tok, cache=None):
     """First decode step's logits on the "cuda" route and the "sdpa"
     route from the same prefill: finite, and within 5e-2 x max|logit|
     where the two steps route every token to the same experts.  A moe
@@ -2950,10 +3104,15 @@ def first_step_cuda_vs_sdpa(model, engine, batch, max_len, tok):
     move one choice, which changes the logits by more than rounding;
     there the steps must still agree on the argmax, and the count of
     layers that routed apart is logged (phase 9c holds the routes to
-    each other in f32)."""
+    each other in f32).  Each route prefills a cache of its own, or,
+    given a prefilled dense ``cache``, steps from it with ``pos`` put
+    back before each route and after (a step writes its K/V row at
+    ``pos`` before any layer reads it, so the second route sees what a
+    fresh prefill would give it)."""
     from repro_torch.models import moe
     real = moe._route
     logits, routes = {}, {}
+    pos0 = None if cache is None else cache["pos"].clone()
     try:
         with torch.inference_mode():
             for backend in ("cuda", "sdpa"):
@@ -2965,14 +3124,20 @@ def first_step_cuda_vs_sdpa(model, engine, batch, max_len, tok):
                     return out
                 moe._route = spy
                 model.decode_backend = backend
-                _, cache = engine.prefill(batch, max_len)
+                if pos0 is None:
+                    _, step_cache = engine.prefill(batch, max_len)
+                else:
+                    step_cache = cache
+                    step_cache["pos"].copy_(pos0)
                 picked.clear()          # the prefill's routes
-                logits[backend], _ = model.decode_step(engine.params, cache, tok)
+                logits[backend], _ = model.decode_step(engine.params, step_cache, tok)
                 logits[backend] = logits[backend].float()
-                del cache
+                del step_cache
     finally:
         moe._route = real
         model.decode_backend = "cuda"
+        if pos0 is not None:
+            cache["pos"].copy_(pos0)
     if not all(bool(torch.isfinite(v).all()) for v in logits.values()):
         raise AssertionError("non-finite first-step logits")
     diff = float((logits["cuda"] - logits["sdpa"]).abs().max())
@@ -2981,12 +3146,13 @@ def first_step_cuda_vs_sdpa(model, engine, batch, max_len, tok):
     apart = sum(not torch.equal(a, b) for a, b in zip(routes["cuda"], routes["sdpa"]))
     where = (f"; the two steps routed apart in {apart} of {len(routes['cuda'])} moe "
              "layers" if routes["cuda"] else "")
-    log(f"  first-step logits {tuple(logits['cuda'].shape)} cuda vs sdpa: "
+    log(f"  first-step logits {tuple(logits['cuda'].shape)} finite; cuda vs sdpa: "
         f"max_abs_diff {diff:.4g}, max|logit| {scale:.4g}, argmax "
         f"{'agrees' if agree else 'differs'}{where} (tol 5e-2 x max|logit| "
         "where no layer routed apart, else the argmax)")
     if (diff > 5e-2 * scale) if apart == 0 else not agree:
         raise AssertionError("bf16 first-step logits of cuda and sdpa disagree")
+    return dict(max_abs_diff=diff, max_logit=scale, argmax_agrees=agree)
 
 
 def family_batch1(dev, name):
@@ -3361,16 +3527,23 @@ def kernel_kind(name: str) -> str:
                 "other")
 
 
-def top_device_ops(fn, n=15, pick=()):
+def top_device_ops(fn, n=15, pick=(), warm=False):
     """One call of ``fn`` under torch.profiler: (kernel ms summed, kernels
     launched, the n kernels with the most device time as (name, calls,
     ms), ms by ``kernel_kind``), and with ``pick`` a fifth item: (calls,
-    ms) of the kernels whose names hold one of ``pick``."""
-    from torch.profiler import ProfilerActivity, profile
+    ms) of the kernels whose names hold one of ``pick``.  With ``warm``
+    a first call runs traced and dropped (the profiler's warm-up step),
+    so the trace has started before the recorded call: a cold start can
+    lose the first kernels it should record."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                 schedule=schedule(wait=0, warmup=1, active=1) if warm else None) as prof:
+        for _ in range(2 if warm else 1):
+            fn()
+            torch.cuda.synchronize()
+            if warm:
+                prof.step()
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     events.sort(key=lambda e: -e.self_device_time_total)
     kinds = {}
@@ -3846,30 +4019,51 @@ DRYRUN_CELLS = (("qwen2.5-3b", "train_4k", "pod"),
                 ("mamba2-2.7b", "long_500k", "pod"),
                 # the moe token reshapes on an FSDP data split (2 rows a rank)
                 ("llama4-scout-17b-a16e", "train_4k", "pod"))
-DRYRUN_TIMEOUT_S = 600
-MEASURED = {}   # phase 10's and 18c's numbers, read by phase 20b
+DRYRUN_TIMEOUT_S = 900      # from its start after phase 1: it shares the host with phases 2-19
+MEASURED = {}   # phase 10's and 18c's numbers, read by phases 20b and 23
 
 
-def dry_run_cells():
-    """20a: ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS in a
-    subprocess of its own (a fake world of 256 / 512 ranks is
-    process-global and cannot share a process with phase 19's group);
-    every cell must end ``ok``.  Returns each cell's numbers."""
+def start_dry_run():
+    """Starts 20a: ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS
+    in a subprocess of its own (a fake world of 256 / 512 ranks is
+    process-global and cannot share a process with phase 19's group).
+    It touches no GPU (``CUDA_VISIBLE_DEVICES`` is empty) and runs on one
+    torch thread, so it traces on a spare host core beside the card's
+    phases from phase 2 on; ``dry_run_cells`` waits for it.  Killed at
+    exit if it still runs.  Returns (process, start time)."""
     out_dir = ROOT / "build" / "dryrun"
-    cells = [f"{a}:{s}:{m}" for a, s, m in DRYRUN_CELLS]
-    log("== phase 20a: the dry run on meta DTensors over a fake world, in a "
-        f"subprocess: {', '.join(cells)}")
+    out_dir.mkdir(parents=True, exist_ok=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--force",
-           "--out", str(out_dir)] + [x for c in cells for x in ("--cell", c)]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=DRYRUN_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
+           "--out", str(out_dir)] + [x for c in DRYRUN_CELLS
+                                     for x in ("--cell", ":".join(c))]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    with open(out_dir / "stdout.txt", "w") as so, open(out_dir / "stderr.txt", "w") as se:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=so, stderr=se, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def dry_run_cells(started):
+    """20a: waits for the dry run ``start_dry_run`` started; every cell
+    must end ``ok``.  Returns each cell's numbers."""
+    proc, t0 = started
+    out_dir = ROOT / "build" / "dryrun"
+    cells = [":".join(c) for c in DRYRUN_CELLS]
+    log("== phase 20a: the dry run on meta DTensors over a fake world, in a "
+        f"subprocess started after phase 1: {', '.join(cells)}")
+    t_wait = time.perf_counter()
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (t_wait - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"the dry run ran past {DRYRUN_TIMEOUT_S} s") from None
+    wall, waited = time.perf_counter() - t0, time.perf_counter() - t_wait
+    for line in (out_dir / "stdout.txt").read_text().splitlines():
         if line.strip():
             log("  " + line)
-    out = {"wall_s": wall, "cells": {}}
+    out = {"wall_s": wall, "waited_s": waited, "cells": {}}
     for arch, shape, mesh in DRYRUN_CELLS:
         cell = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json").read_text())
         if cell["status"] != "ok":
@@ -3892,9 +4086,10 @@ def dry_run_cells():
             argument_bytes_per_rank=mem["per_chip_bytes"],
             flops_per_rank=cell["flop_counter"]["flops_per_rank"])
     if proc.returncode:
-        log(proc.stderr[-4000:])
+        log((out_dir / "stderr.txt").read_text()[-4000:])
         raise AssertionError(f"the dry run exited {proc.returncode}")
-    log(f"  the dry run's subprocess took {wall:.1f} s")
+    log(f"  the dry run's subprocess took {wall:.1f} s, {waited:.1f} s of it waited "
+        "for here")
     return out
 
 
@@ -3949,10 +4144,11 @@ def one_card_roofline():
     return out
 
 
-def analysis():
-    """Phase 20; returns its numbers."""
+def analysis(dry_run):
+    """Phase 20, reading the dry run ``start_dry_run`` started; returns
+    its numbers."""
     t_phase = time.perf_counter()
-    out = {"dryrun": dry_run_cells(), "roofline": one_card_roofline()}
+    out = {"dryrun": dry_run_cells(dry_run), "roofline": one_card_roofline()}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 20 took {out['seconds']:.1f} s")
     return out
@@ -4431,6 +4627,211 @@ def staticcheck_phase(dev):
     return out
 
 
+# ---------------------------------------------------------------- phase 23
+# the paper's decode matrix (its three models at ctx 2048-16384; the
+# floors are its Table 9's H100 entries), and zamba2-1.2b at 8192, where
+# its 4096-slot ring wraps at prefill and keeps wrapping in decode
+MATRIX_ARCHS = ("qwen2.5-7b", "mistral-7b-v0.3", "llama-3.1-8b")
+MATRIX_CTX = (2048, 4096, 8192, 16384)
+MATRIX_HYBRID = ("zamba2-1.2b", 8192)
+WARM_PROMPT = 128          # tokens of the requests that capture a cell's graphs
+
+
+def matrix_numbers(graph_ms, eager_ms, sdpa_ms, floor_ms, prefill_ms, peak_bytes,
+                   source) -> dict:
+    """A matrix cell's end-to-end numbers: the three arms' p50 and
+    R_floor, the prefill wall and the peak allocated memory."""
+    return dict(graph_p50_ms=graph_ms, eager_p50_ms=eager_ms, eager_sdpa_p50_ms=sdpa_ms,
+                floor_ms=floor_ms, r_floor=floor_ms / graph_ms,
+                r_floor_eager=floor_ms / eager_ms, r_floor_eager_sdpa=floor_ms / sdpa_ms,
+                prefill_ms=prefill_ms, peak_gb=peak_bytes / 1e9, source=source)
+
+
+def matrix_cell(dev, engine, ctx, deep):
+    """One cell: prompt = ctx, batch 1, bf16, greedy, through the
+    engine's graph step.  A 2-token request on a WARM_PROMPT-token
+    prompt captures the step at this max_len (and with ``deep`` a fused
+    request the loop's graph); then,
+    counts at 0, two timed streamed requests (62 replayed steps) and
+    with ``deep`` one fused.  Launches of kernels 1 and 5 (and 4 on the
+    hybrid) must match one a layer and step, the requests' tokens must
+    be equal.  One more prefill (timed, synchronised) fills a cache of
+    ctx + 64 slots, from which the first step's logits (cuda against
+    sdpa, dense) and the eager p50 on both routes are taken; with
+    ``deep`` also 4 profiled eager steps (after 4 traced as the
+    profiler's warm-up): kernel 1 one ``decode_attention_mma`` kernel a
+    layer and step (a slack of one) and no partial/merge kernel, busy
+    share, top kernels, kernel 1's in-step device µs a launch against
+    its bound."""
+    from repro_torch.core.floor import floor_cell
+    from repro_torch.core.hardware import GPU_H100
+    from repro_torch.models import attention
+    t_cell = time.perf_counter()
+    model, cfg = engine.model, engine.cfg
+    hybrid = cfg.family == "hybrid"
+    n_attn = len(model._hybrid_groups()) if hybrid else cfg.n_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    log(f"  -- {cfg.name} ctx {ctx} ({cfg.n_layers} layers"
+        + (f", {n_attn} shared-attention applications, window {cfg.sliding_window}"
+           if hybrid else "") + f", bf16): prompt {ctx}, {NEW} new tokens")
+    batch = prompt_batch(cfg.vocab_size, dev, ctx, seed=ctx)
+    max_len = ctx + NEW + 1
+    # the graphs are captured per max_len, whatever the prompt: short
+    # warm-up prompts capture them without a long prefill
+    warm = prompt_batch(cfg.vocab_size, dev, WARM_PROMPT, seed=1)
+    engine.generate_streamed(warm, max_len=max_len, n_new=2)       # captures the step
+    if deep:
+        engine.generate_fused(warm, max_len=max_len, n_new=NEW)    # captures the loop
+    zero_counts()
+    runs = [engine.generate_streamed(batch, max_len=max_len, n_new=NEW, timed=True)
+            for _ in range(2)]
+    if deep:
+        runs.append(engine.generate_fused(batch, max_len=max_len, n_new=NEW))
+    got = launched()
+    steps = len(runs) * (NEW - 1)
+    norms = 2 * cfg.n_layers + (2 * n_attn if hybrid else 0) + 1
+    want = dict(decode_attention=n_attn * steps, rmsnorm=norms * (steps + len(runs)))
+    if hybrid:
+        want["ssd_update"] = cfg.n_layers * steps
+    counts = {k: got[k] for k in want}
+    log(f"  launches by the {len(runs)} timed requests {counts}; want decode_attention "
+        f"{n_attn} x {steps} decode steps, rmsnorm {norms} x ({steps} + {len(runs)} "
+        f"prefills)" + (f", ssd_update {cfg.n_layers} x {steps}" if hybrid else "")
+        + f": {want}")
+    if counts != want:
+        raise AssertionError(f"{cfg.name} ctx {ctx}: launches {counts} differ from {want}")
+    for i, r in enumerate(runs):
+        if r.tokens.shape != (1, NEW):
+            raise AssertionError(f"request {i}: tokens {tuple(r.tokens.shape)}")
+    if not all(torch.equal(runs[0].tokens, r.tokens) for r in runs[1:]):
+        raise AssertionError(f"{cfg.name} ctx {ctx}: the requests' greedy tokens differ")
+    ring = None
+    if hybrid:
+        ring = engine._caches[(1, max_len, engine.kv_dtype)]["k"].shape[2]
+        if ring != cfg.sliding_window:
+            raise AssertionError(f"{cfg.name}: a {ring}-slot attention cache, want "
+                                 f"the {cfg.sliding_window}-slot ring")
+    log(f"  tokens (1, {NEW}) equal across the {len(runs)} requests ("
+        + ("streamed, streamed, fused" if deep else "streamed, streamed") + ")"
+        + (f"; the attention cache is a {ring}-slot ring (prompt {ctx} wrapped it "
+           f"{ctx // ring} times at prefill)" if ring else ""))
+    step_s = runs[0].step_times_s + runs[1].step_times_s
+    p50 = statistics.median(step_s) * 1e3
+    tok = runs[0].tokens[:, :1]
+    with torch.inference_mode():
+        cache = engine.new_cache(1, ctx + 64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(engine.params, batch, cache)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        pos0 = cache["pos"].clone()
+        first = first_step_cuda_vs_sdpa(model, engine, batch, max_len, tok,
+                                        cache=None if hybrid else cache)
+        p50_eager = eager_steps_p50(engine, cache, tok)
+        cache["pos"].copy_(pos0)
+        p50_sdpa = eager_steps_p50(engine, cache, tok, "sdpa")
+        cache["pos"].copy_(pos0)
+        fc = floor_cell(cfg, GPU_H100, ctx)
+        numbers = matrix_numbers(p50, p50_eager, p50_sdpa, fc.t_floor_ms, pre_ms,
+                                 torch.cuda.max_memory_allocated(dev), "phase 23")
+        numbers.update(launches=counts, first_step=first, streamed_n=len(step_s),
+                       tok_s=[r.tokens_per_s for r in runs], kv_gb=fc.kv_bytes / 1e9)
+        log(f"  p50 step {p50:.4f} ms (engine graph step, streamed, n={len(step_s)}); "
+            f"eager p50 {p50_eager:.4f} ms (kernel 1), {p50_sdpa:.4f} ms (sdpa route); "
+            f"floor {fc.t_floor_ms:.4f} ms (floor_cell {cfg.name}, {GPU_H100.name}, ctx "
+            f"{ctx}); R_floor {numbers['r_floor']:.4f} (eager "
+            f"{numbers['r_floor_eager']:.4f}, eager sdpa "
+            f"{numbers['r_floor_eager_sdpa']:.4f}); prefill of {ctx} tokens "
+            f"{pre_ms:.4f} ms wall (one, synchronised"
+            + (", q-block-chunked" if ctx > attention.CHUNKED_ATTN_THRESHOLD else "")
+            + "); peak "
+            f"allocated {numbers['peak_gb']:.3f} GB")
+        if deep:
+            def four_steps():
+                cache["pos"].copy_(pos0)
+                for _ in range(4):
+                    model.decode_step(engine.params, cache, tok)
+            total, count, top, kinds, (k1_calls, k1_ms) = top_device_ops(
+                four_steps, n=100000, pick=("decode_attention_mma",), warm=True)
+            cache["pos"].copy_(pos0)
+            log_profile(f"{cfg.name} ctx {ctx}, 4 eager steps under the profiler (after "
+                        "4 traced for its warm-up)", (total, count, top[:8], kinds))
+            pair = sum(c for name, c, _ in top if "decode_attention_partial" in name
+                       or "decode_attention_merge" in name)
+            log(f"  decode_attention_mma kernels in the 4 steps under the profiler "
+                f"{k1_calls} (want {4 * n_attn}; a slack of one for a kernel the trace "
+                f"loses); decode_attention_partial/merge kernels {pair} (want 0)")
+            if not 4 * n_attn - 1 <= k1_calls <= 4 * n_attn or pair:
+                raise AssertionError(f"{cfg.name} ctx {ctx}: kernel 1 was not one "
+                                     "decode_attention_mma launch per attention call")
+            hd, Hkv, Hq = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
+            valid = min(ctx + 1, ring or ctx + 1)
+            kv_slots = cache["k"].shape[2]
+            nbytes = 2 * valid * Hkv * hd * 2 + kv_slots + 2 * Hq * hd * 2
+            k1_bound, _ = bound_ms(nbytes, 4 * Hq * valid * hd, torch.bfloat16)
+            k1_us = k1_ms * 1e3 / k1_calls
+            busy = total / 4
+            log(f"  device busy {busy:.4f} ms a step = {busy / p50:.1%} of the graph "
+                f"p50, {busy / p50_eager:.1%} of the eager p50; kernel 1 in the step "
+                f"{k1_us:.2f} device µs a launch ({k1_calls} launches) against its "
+                f"bound {k1_bound * 1e3:.2f} µs ({nbytes / 1e6:.2f} MB: {valid} valid "
+                f"slots of K and V, the mask, q and out)")
+            numbers.update(device_ms=busy, busy_share=busy / p50,
+                           kernels_per_step=count / 4, k1_device_us=k1_us,
+                           k1_bound_us=k1_bound * 1e3,
+                           top_kernels=[(n[:80], c / 4, ms / 4) for n, c, ms in top[:8]])
+    del cache
+    numbers["seconds"] = time.perf_counter() - t_cell
+    log(f"  cell took {numbers['seconds']:.1f} s")
+    return numbers, counts
+
+
+def paper_matrix(dev):
+    """Phase 23: every cell of MATRIX_ARCHS x MATRIX_CTX and MATRIX_HYBRID
+    through ``matrix_cell``, one model (random weights drawn on the card)
+    per arch, contexts in increasing order, the card freed between archs;
+    the deep checks at each arch's longest context.  qwen2.5-7b at 2048
+    is phase 10's cell: its numbers are taken from there when it ran."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine
+    free_card()
+    log("== phase 23: the paper's decode matrix, batch-1 bf16 greedy decode at full "
+        f"width and depth: {', '.join(MATRIX_ARCHS)} at ctx "
+        f"{', '.join(map(str, MATRIX_CTX))}; {MATRIX_HYBRID[0]} at ctx "
+        f"{MATRIX_HYBRID[1]}; {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+        "allocated at the start")
+    t_phase = time.perf_counter()
+    cells, counts = {}, {}
+    for name, ctxs in [(a, MATRIX_CTX) for a in MATRIX_ARCHS] + [
+            (MATRIX_HYBRID[0], MATRIX_HYBRID[1:])]:
+        cfg = get_config(name)
+        model = Model(cfg, decode_backend="cuda", device=dev)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        log(f"  {name}: random weights drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+            "GB allocated")
+        engine = DecodeEngine(model, params)
+        for ctx in ctxs:
+            label = f"{name} ctx {ctx}"
+            reused = MEASURED.get(f"matrix {name} {ctx}")
+            if reused:
+                cells[label] = reused
+                log(f"  -- {label}: phase 10's cell, not run again: graph p50 "
+                    f"{reused['graph_p50_ms']:.4f} ms, R_floor {reused['r_floor']:.4f}")
+                continue
+            cells[label], counts[label] = matrix_cell(dev, engine, ctx,
+                                                      deep=ctx == ctxs[-1])
+        del engine, model, params
+        free_card()
+    out = {"cells": cells, "seconds": time.perf_counter() - t_phase}
+    log(f"  phase 23 took {out['seconds']:.1f} s")
+    return counts, out
+
+
 # ---------------------------------------------------------------- main
 PENDING = []    # TPU kernels still to port: none
 
@@ -4450,7 +4851,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", choices=["kernels", "families", "train", "dist",
                                        "analysis", "examples", "sampling",
-                                       "staticcheck"],
+                                       "staticcheck", "matrix"],
                     help="kernels: phases 1-6 and the kernels line (launches "
                          "null), no main path and no ok line; families: "
                          "phases 1, 9c and 17 (the moe, vlm and audio "
@@ -4466,7 +4867,9 @@ def main(argv=None) -> int:
                          "sampling in the captured graphs), no kernels line "
                          "and no ok line; staticcheck: phases 1 and 22 (the "
                          "static hot-path checker against torch's sync "
-                         "detector), no kernels line and no ok line")
+                         "detector), no kernels line and no ok line; matrix: "
+                         "phases 1 and 23 (the paper's decode matrix at ctx "
+                         "2048-16384), no kernels line and no ok line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4475,6 +4878,12 @@ def main(argv=None) -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
     smi, dev = setup()
+    # the full run's dry run (phase 20a) traces on the host from here on
+    dry_run = start_dry_run() if args.only is None else None
+    if args.only == "matrix":
+        log(json.dumps({"matrix": paper_matrix(dev)[1]}))
+        log(smi.splitlines()[0])
+        return 0
     if args.only == "staticcheck":
         log(json.dumps({"staticcheck": staticcheck_phase(dev)}))
         log(smi.splitlines()[0])
@@ -4488,7 +4897,7 @@ def main(argv=None) -> int:
         log(smi.splitlines()[0])
         return 0
     if args.only == "analysis":
-        log(json.dumps({"analysis": analysis()}))
+        log(json.dumps({"analysis": analysis(start_dry_run())}))
         log(smi.splitlines()[0])
         return 0
     if args.only == "dist":
@@ -4543,9 +4952,10 @@ def main(argv=None) -> int:
     fc, fam = families_full_width(dev)
     tc, train = training(dev)
     dc, dist_out = distributed(dev)
-    analysis_out = analysis()
+    analysis_out = analysis(dry_run)
     ec, examples_out = examples_phase(dev)
     static_out = staticcheck_phase(dev)
+    mc, matrix_out = paper_matrix(dev)
     dense, int4 = "qwen2.5-7b batch-1 bf16", "qwen2.5-7b batch-1 int4"
     paged = ("qwen2.5-7b paged bf16 KV", "qwen2.5-7b paged int8 KV")
     tiered = ("qwen2.5-7b tiered paged bf16 KV", "qwen2.5-7b tiered paged int8 KV")
@@ -4589,6 +4999,10 @@ def main(argv=None) -> int:
         {moe_q: fc["moe_int4"]["dequantize"],
          **{ablated[p]: ec[p]["dequantize"]
             for p in ("int8_dequant", "int8_fused", "int4_dequant")}}]
+    for label, c in mc.items():     # phase 23: kernels 1, 5 (and 4 on the hybrid)
+        for i, kernel in ((0, "decode_attention"), (4, "rmsnorm"), (5, "ssd_update")):
+            if kernel in c:
+                by_path[i][f"{label} (matrix)"] = c[kernel]
     for row, counts in zip(rows, by_path):
         row["launches"] = sum(counts.values())
         row["launches_by_path"] = counts
@@ -4603,6 +5017,7 @@ def main(argv=None) -> int:
     log(json.dumps({"analysis": analysis_out}))
     log(json.dumps({"examples": examples_out}))
     log(json.dumps({"staticcheck": static_out}))
+    log(json.dumps({"matrix": matrix_out}))
     log(smi.splitlines()[0])
     print(kernels_line(rows))
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,16 @@ def _close(out, ref, dtype):
     assert float((out.float() - ref.float()).abs().max()) <= TOL[dtype] * scale
 
 
+def _close_rows(out, ref, dtype):
+    """Each row (the last dim) within TOL of its own max|ref|, without
+    ``_close``'s floor of 1: a softmax over ~16k slots averages the output
+    far below 1, where the floor would let a lost split through.  A row
+    whose ref is all zero must be zero."""
+    err = (out.float() - ref.float()).abs().amax(-1)
+    scale = ref.float().abs().amax(-1)
+    assert bool((err <= TOL[dtype] * scale).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Hq,Hkv,hd,S", [
     (1, 28, 4, 128, 512), (2, 8, 2, 64, 256), (3, 16, 4, 64, 384),
@@ -118,6 +128,50 @@ def test_decode_attention_mma_one_split_and_long_range(cuda):
     assert torch.all(out[-1] == 0)
     dead = ~mask
     k[dead], v[dead] = float("nan"), float("nan")
+    assert torch.equal(da_ops.decode_attention(q, k, v, mask), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Hkv", [(7, 4), (4, 8)])
+def test_decode_attention_first_step_at_16384(cuda, dtype, G, Hkv):
+    """The first decode step at ctx 16384 (S = 16384 + 33 slots, the
+    prefix mask of pos 16384): qwen2.5-7b (G=7, 33 splits on an H100)
+    and mistral-7b / llama-3.1-8b (G=4, Hkv 8, 16 splits), each row
+    within tolerance of its own scale in the plain version (one split
+    lost moves a row by 20% or more: tests/test_torch_long_context.py);
+    NaN in the masked rows leaves the output bit-equal."""
+    S = 16384 + 33
+    g = torch.Generator(device=cuda).manual_seed(G)
+    q = torch.randn((1, G * Hkv, 128), generator=g, device=cuda).to(dtype)
+    k = torch.randn((1, S, Hkv, 128), generator=g, device=cuda).to(dtype)
+    v = torch.randn((1, S, Hkv, 128), generator=g, device=cuda).to(dtype)
+    mask = torch.arange(S, device=cuda) <= 16384
+    assert da_ops.path_for(q, k) == ("mma" if dtype == torch.bfloat16 else "cuda_core")
+    out = da_ops.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    _close_rows(out, decode_attention_ref(q, k, v, mask), dtype)
+    k[:, ~mask], v[:, ~mask] = float("nan"), float("nan")
+    assert torch.equal(da_ops.decode_attention(q, k, v, mask), out)
+
+
+def test_decode_attention_mma_window_walk_at_16384(cuda):
+    """17 sequences at Hkv 8 get one split a (b, KV head) pair, so each
+    block walks its 16384 slots as four 4096-slot windows of mask bits;
+    rows ragged across the window edges (one empty) agree row by row
+    with the plain version, and NaN in the masked rows leaves the output
+    bit-equal."""
+    lens = (16384, 16383, 12289, 12288, 8193, 8192, 8191, 4097, 4096, 4095,
+            2048, 1000, 65, 64, 17, 1, 0)
+    B, G, Hkv, hd, S = len(lens), 4, 8, 128, 16384
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert da_ops.mma_split_plan(B, Hkv, S, sms) == 1
+    q, k, v, _ = _mma_case(cuda, B, G, Hkv, hd, S, seed=17)
+    mask = torch.arange(S, device=cuda)[None] < torch.tensor(lens, device=cuda)[:, None]
+    out = da_ops.decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    _close_rows(out, decode_attention_ref(q, k, v, mask), torch.bfloat16)
+    assert torch.all(out[-1] == 0)
+    k[~mask], v[~mask] = float("nan"), float("nan")
     assert torch.equal(da_ops.decode_attention(q, k, v, mask), out)
 
 
@@ -363,7 +417,8 @@ PAGED_LENGTHS = (2100, 2081, 2117, 2064)   # the paged serving shape's slots
     # 16 splits a pair: 2048 tokens are 8 units a split, 127-129 are 8-9
     # units over 16 splits (most hold none)
     (28, 4, 128, 16, 136, (127, 128, 129, 2048)),
-    (28, 4, 128, 16, 136, (2047, 2049, 2175, 2176))])
+    (28, 4, 128, 16, 136, (2047, 2049, 2175, 2176)),
+    (28, 4, 128, 16, 1024, (16384,))])              # one slot at ctx 16384
 def test_paged_decode_attention(cuda, dtype, quant, Hq, Hkv, hd, page,
                                 max_blocks, lengths):
     """Kernel 2 against its plain version, on the path ``path_for``
@@ -379,7 +434,10 @@ def test_paged_decode_attention(cuda, dtype, quant, Hq, Hkv, hd, page,
     out = pda_ops.paged_decode_attention(q, k, v, bt, lens, ks, vs)
     torch.cuda.synchronize()
     assert pda_ops.launches == before + 1
-    _close(out, _paged_plain(q, k, v, ks, vs, bt, lens), dtype)
+    want = _paged_plain(q, k, v, ks, vs, bt, lens)
+    _close(out, want, dtype)
+    if max(lengths) > 8192:         # the long slot: each row to its own scale
+        _close_rows(out, want, dtype)
     assert torch.equal(pda_ops.paged_decode_attention(q, k, v, bt, lens, ks, vs),
                        out)
     for i, n in enumerate(lengths):
