@@ -162,11 +162,14 @@ Phases, in order; each raises on failure and nothing catches:
     the stochastic tok/s of each loop; the sampling ops of a step
     (``sample`` on a (1, V) logits row) by kernel name, profiler device
     µs.  (C) phase 12's 8 sessions through 4 paged slots (bf16 KV) at
-    K=4 captured and uncaptured from one seed: equal event logs and
+    K=4 captured with ``shared_programs``, then a second such scheduler
+    over the same model that must capture nothing and call kernel 2's
+    wrapper no time (its launches all replays of the first's graph),
+    then K=4 uncaptured, all from one seed: equal event logs and
     generator states; then K=1; every session ends with its budget, the
     pools balance, kernel 2 runs 28 times a device step in the replays;
-    tok/s at K=4 and K=1.  Its numbers go on a ``{"sampling": ...}``
-    line.
+    tok/s, p50 a token and the slowest dispatch at K=4 reused, K=4
+    capturing and K=1.  Its numbers go on a ``{"sampling": ...}`` line.
 12. the paged serving path at full width: qwen2.5-7b, 28 layers, bf16,
     8 sessions (prompts 2048+, 32+ new tokens) through 4 paged slots,
     page 16, prefill chunk 512, through ``generate_continuous`` twice:
@@ -176,8 +179,9 @@ Phases, in order; each raises on failure and nothing catches:
     (route, K), its replays must launch the paged kernel 28 times and
     the RMSNorm kernel 57 times per device step (the capture's launches
     times the replays; the profiler must see the same in a steady
-    window: 28 ``paged_attention_mma`` kernels per device step and no
-    ``paged_merge``), and first-step logits of "cuda" and "sdpa" must agree;
+    window, a shared scheduler that replays the run's graph and must
+    capture none: 28 ``paged_attention_mma`` kernels per device step and
+    no ``paged_merge``), and first-step logits of "cuda" and "sdpa" must agree;
     p50 decode time per token, aggregate tok/s and the device-busy share.
 13. mamba2-2.7b at full width and depth (64 layers, bf16, random weights
     drawn on the card): the requests of phase 10 through the engine's
@@ -1880,11 +1884,15 @@ def sample_ops(engine, batch, max_len, dev):
 
 def sampled_paged(dev, model, params):
     """C: phase 12's 8 sessions through 4 paged slots (bf16 KV, page 16,
-    chunk 512) at temperature 0.8, top_k 50, one seed: K=4 captured, K=4
-    uncaptured (equal event logs, the generator left where it was), K=1
-    captured (sampling outside the step graph).  Every session ends with
-    its budget, the pools balance, and the K=4 replays launch kernel 2
-    28 times a device step."""
+    chunk 512) at temperature 0.8, top_k 50, one seed: K=4 captured with
+    ``shared_programs``, then a second such scheduler over the same model
+    that replays the first's graphs (no capture, no call of kernel 2's
+    wrapper, the same event log and generator state), K=4 uncaptured
+    (equal event logs, the generator left where it was), K=1 captured
+    (sampling outside the step graph).  Every session ends with its
+    budget, the pools balance, and the K=4 replays launch kernel 2 28
+    times a device step."""
+    from repro_torch.kernels import launch_counts
     from repro_torch.launch.serve import mixed_requests
     from repro_torch.serving import SlotScheduler, programs
     cfg = model.cfg
@@ -1894,9 +1902,12 @@ def sampled_paged(dev, model, params):
     kw = dict(n_slots=4, max_len=max_len, paged=True, page_size=PAGE,
               prefill_chunk=512, temperature=SAMPLE_T, top_k=SAMPLE_K, seed=SEEDS[0])
     counts, out, events = {}, {}, {}
-    for label, K, capture in (("K=4", 4, True), ("K=4 uncaptured", 4, False),
-                              ("K=1", 1, True)):
-        sched = SlotScheduler(model, params, steps_per_tick=K, **kw)
+    for label, K, capture, shared in (("K=4", 4, True, True),
+                                      ("K=4 reused", 4, True, True),
+                                      ("K=4 uncaptured", 4, False, False),
+                                      ("K=1", 1, True, False)):
+        sched = SlotScheduler(model, params, steps_per_tick=K, shared_programs=shared,
+                              **kw)
         sched._progs.capture = capture
         for r in reqs:
             sched.submit(r)
@@ -1905,6 +1916,8 @@ def sampled_paged(dev, model, params):
             res = sched.run()
         if capture:
             counts[label] = launched()
+        wrapper = launch_counts()["paged_decode_attention"]
+        captured = programs.captured_launches.get("paged_decode_attention", 0)
         replayed = programs.replay_launches.get("paged_decode_attention", 0)
         got = {sid: len(s.tokens) for sid, s in res.sessions.items()}
         step_s = [t for s in res.sessions.values() for t in s.step_times_s]
@@ -1918,24 +1931,41 @@ def sampled_paged(dev, model, params):
         if got != budgets:
             raise AssertionError(f"paged {label}: sessions ended short: {got} vs {budgets}")
         check_balanced(sched, f"paged {label}")
-        if capture and (res.step_cache_size != 1
+        graphs = 0 if label == "K=4 reused" else 1
+        if capture and (res.step_cache_size != graphs
                         or replayed != res.dispatches * K * cfg.n_layers):
             raise AssertionError(f"paged {label}: {res.step_cache_size} graphs, "
                                  f"{replayed} kernel-2 launches by the replays, "
-                                 f"want 1 and {cfg.n_layers} x {K} x {res.dispatches}")
+                                 f"want {graphs} and {cfg.n_layers} x {K} x "
+                                 f"{res.dispatches}")
+        if label == "K=4 reused" and (wrapper or captured):
+            raise AssertionError(f"paged {label}: kernel 2's wrapper ran {wrapper} "
+                                 f"times ({captured} recorded by a capture); the "
+                                 "reused graphs' replays should be its only launches")
         events[label] = (res.events, sched.gen.get_state())
         out[label] = dict(tok_s=res.tokens_per_s, p50_ms_token=p50, wall_s=res.wall_s,
                           slowest_dispatch_ms=slowest, ticks=res.ticks,
                           dispatches=res.dispatches, tokens=res.run_tokens,
-                          preemptions=res.preemptions)
+                          preemptions=res.preemptions, graphs=res.step_cache_size,
+                          kernel2_wrapper_calls=wrapper,
+                          kernel2_replay_launches=replayed)
         del sched
-    (ev, st), (ev_plain, st_plain) = events["K=4"], events["K=4 uncaptured"]
-    if ev != ev_plain or not torch.equal(st, st_plain):
-        raise AssertionError("paged K=4: the captured scheduler's event log (or "
-                             "its generator) differs from the uncaptured one's")
-    log(f"  paged K=4: captured and uncaptured event logs equal ({len(ev)} events), "
-        "generators at one offset; every session ended with its budget, pools "
-        "balance")
+    (ev, st) = events["K=4"]
+    for other in ("K=4 reused", "K=4 uncaptured"):
+        ev_o, st_o = events[other]
+        if ev != ev_o or not torch.equal(st, st_o):
+            raise AssertionError(f"paged K=4: the captured scheduler's event log (or "
+                                 f"its generator) differs from the {other} one's")
+    log(f"  paged K=4: captured, reused and uncaptured event logs equal ({len(ev)} "
+        "events), generators at one offset; every session ended with its budget, "
+        "pools balance")
+    log("  K=4 with the graphs reused against K=4 capturing and K=1: tok/s "
+        + ", ".join(f"{k} {out[k]['tok_s']:.2f}" for k in ("K=4 reused", "K=4", "K=1"))
+        + "; p50 ms a token "
+        + ", ".join(f"{out[k]['p50_ms_token']:.4f}" for k in ("K=4 reused", "K=4", "K=1"))
+        + "; slowest dispatch ms "
+        + ", ".join(f"{out[k]['slowest_dispatch_ms']:.1f}"
+                    for k in ("K=4 reused", "K=4", "K=1")))
     out["events_equal"] = True
     out["kernel2_per_device_step"] = cfg.n_layers
     return counts, out
@@ -2088,26 +2118,30 @@ def prefill_chunk_time(model, params, cache, req, C=512, reps=3):
 
 def paged_window(model, params, reqs, max_len, kw, ticks=3):
     """Device view of steady paged decode: a scheduler over the first 4
-    sessions runs until every slot decodes and its graph is captured;
-    then ``ticks`` ticks run under torch.profiler, timed by the host
-    clock (synchronised).  Returns (paged-kernel and RMSNorm-kernel
-    launches per device step, device ms per tick, wall ms per tick, the
-    profiler's rows)."""
+    sessions (``shared_programs``: it replays the graph the run before it
+    captured, and must capture none) runs until every slot decodes and
+    has dispatched once; then ``ticks`` ticks run under torch.profiler,
+    timed by the host clock (synchronised).  Returns (paged-kernel and
+    RMSNorm-kernel launches per device step, device ms per tick, wall ms
+    per tick, the profiler's rows)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import SlotScheduler
-    sched = SlotScheduler(model, params, max_len=max_len, **kw)
+    sched = SlotScheduler(model, params, max_len=max_len, shared_programs=True, **kw)
     for r in reqs[:4]:
         sched.submit(r)
     K = sched.steps_per_tick
     with torch.inference_mode():
         for _ in range(1000):
             if all(s is not None and s.decoding for s in sched.slots) \
-                    and sched.step_cache_size():
+                    and sched.decode_steps:
                 break
             sched.tick()
         else:
             raise AssertionError("the 4 slots never decoded together")
+        if sched.step_cache_size() != 0:
+            raise AssertionError(f"the steady window captured {sched.step_cache_size()} "
+                                 "graph(s); it should replay the serving run's")
         torch.cuda.synchronize()
         steps0 = sched.decode_steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2157,7 +2191,8 @@ def paged_serving(dev):
         pda_ops.launches = rms_ops.launches = 0
         programs.captured_launches.clear()
         programs.replay_launches.clear()
-        res = engine.generate_continuous(reqs, max_len=max_len, **kw)
+        res = engine.generate_continuous(reqs, max_len=max_len, shared_programs=True,
+                                         **kw)
         wrapper = pda_ops.launches
         captured = programs.captured_launches.get("paged_decode_attention", 0)
         replayed = programs.replay_launches.get("paged_decode_attention", 0)
@@ -2204,7 +2239,8 @@ def paged_serving(dev):
         p50 = statistics.median(step_s) * 1e3
         per_step, merges, norm_step, busy, wall, rows = paged_window(
             model, engine.params, reqs, max_len, dict(kw, kv_dtype=kv_dtype))
-        log(f"    steady window (4 slots decoding, 3 ticks of {K} device "
+        log(f"    steady window (a shared scheduler replaying the run's graph, 0 "
+            f"captured; 4 slots decoding, 3 ticks of {K} device "
             f"step(s), torch.profiler): {per_step:g} kernel-2 kernels "
             f"(paged_attention_mma; {merges} paged_merge in the window) and "
             f"{norm_step:g} RMSNorm-kernel launches per "
@@ -4971,6 +5007,7 @@ def main(argv=None) -> int:
     s_dense, s_int4 = (f"qwen2.5-7b batch-1 {q} sampled (fused graph)"
                        for q in ("bf16", "int4"))
     s_k4, s_k1 = (f"qwen2.5-7b paged bf16 KV sampled {k}" for k in ("K=4", "K=1"))
+    s_k4r = "qwen2.5-7b paged bf16 KV sampled K=4 (shared graphs reused)"
     by_path = [
         {dense: da_launches, zamba: ssm[1]["decode_attention"],
          moe: fc["moe"]["decode_attention"], moe_q: fc["moe_int4"]["decode_attention"],
@@ -4983,6 +5020,7 @@ def main(argv=None) -> int:
         {paged[0]: paged_launches[0], tiered[0]: t_bf16[0],
          moe_p: fc["moe_paged"]["paged_decode_attention"],
          s_k4: sc["K=4"]["paged_decode_attention"],
+         s_k4r: sc["K=4 reused"]["paged_decode_attention"],
          s_k1: sc["K=1"]["paged_decode_attention"]},
         {paged[1]: paged_launches[1], tiered[1]: t_int8[0]},
         {dense: dense_norms, paged[0]: paged_norms[0], paged[1]: paged_norms[1],
@@ -4993,7 +5031,8 @@ def main(argv=None) -> int:
          audio: fc["audio"]["rmsnorm"], trained: tc["rmsnorm"],
          d_decode: dc["decode"]["rmsnorm"], d_train: dc["train"]["rmsnorm"],
          s_dense: sc["bf16"]["rmsnorm"], s_int4: sc["int4"]["rmsnorm"],
-         s_k4: sc["K=4"]["rmsnorm"], s_k1: sc["K=1"]["rmsnorm"]},
+         s_k4: sc["K=4"]["rmsnorm"], s_k4r: sc["K=4 reused"]["rmsnorm"],
+         s_k1: sc["K=1"]["rmsnorm"]},
         {mamba: ssm[0]["ssd_update"], zamba: ssm[1]["ssd_update"]},
         {trained: tc["rmsnorm_bwd"], d_train: dc["train"]["rmsnorm_bwd"]},
         {moe_q: fc["moe_int4"]["dequantize"],

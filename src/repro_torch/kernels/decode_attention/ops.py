@@ -59,6 +59,12 @@ def path_for(q: torch.Tensor, k: torch.Tensor) -> str:
         else "cuda_core"
 
 
+def traffic_bytes(B: int, S: int, Hkv: int, hd: int, kv_bytes: int = 2) -> dict:
+    """Analytic per-call HBM traffic: the K term of the floor model (the
+    reference's, whatever implements the call)."""
+    return {"kv": 2 * B * S * Hkv * hd * kv_bytes}
+
+
 def split_plan(S: int):
     """The CUDA-core path's (n_split, chunk): one TILE of slots per
     block, so that every block's K/V loads are in flight at once, unless

@@ -42,6 +42,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def traffic_bytes(M: int, K: int, N: int, group: int = 128) -> dict:
+    """Analytic HBM bytes per call of the fused path, as the reference
+    charges them: bf16 x and out, packed int4 weights, f32 scales."""
+    return {
+        "x": M * K * 2,
+        "weights": K * N // 2,
+        "scales": (K // group) * N * 4,
+        "out": M * N * 2,
+    }
+
+
 def split_plan(K: int, N: int, n_sm: int, M: int = 1, group: int = 128) -> int:
     """K slices of the GEMV, each a run of whole scale groups (the slices
     differ by at most one group): as many as let every block of the grid

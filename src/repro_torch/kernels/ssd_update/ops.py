@@ -31,6 +31,14 @@ MIN_BLOCKS_PER_SM = 2   # the rows a thread takes shrink until the grid has thes
 launches = 0
 
 
+def traffic_bytes(B: int, H: int, P: int, N: int) -> dict:
+    """Analytic per-step HBM traffic: the SSM 'K' term of the floor (f32
+    state read and written once; an unfused update sweeps it twice more)."""
+    state = B * H * P * N * 4
+    return {"state_read": state, "state_write": state,
+            "unfused_extra_sweeps": 2 * state}
+
+
 class SsdPlan(NamedTuple):
     lanes: int             # lanes of one row (4, 8, 16 or 32)
     chunks: int            # 16-byte chunks of its row each lane holds (1 or 2)

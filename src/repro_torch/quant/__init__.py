@@ -8,7 +8,8 @@ import torch
 from repro_torch.quant.paths import (expert_einsum, matmul,  # noqa: F401
                                      weight_bytes_streamed)
 from repro_torch.quant.quantize import (DEFAULT_GROUP, QuantizedTensor,  # noqa: F401
-                                        dequantize, quantize, unpack_int4)
+                                        dequantize, quantize, quantize_int4,
+                                        quantize_int8, unpack_int4)
 
 # weight leaf names eligible for quantisation (embeddings, norms, biases,
 # routers, convs and SSM scalars stay in the model dtype — standard practice)

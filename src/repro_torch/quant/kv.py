@@ -25,3 +25,7 @@ def dequantize_kv(codes: torch.Tensor, scales: torch.Tensor,
                   dtype=torch.bfloat16) -> torch.Tensor:
     """codes (..., hd) int8, scales (...) f32 -> (..., hd) dtype."""
     return (codes.float() * scales[..., None]).to(dtype)
+
+
+def is_quantized_cache(cache) -> bool:
+    return "k_scale" in cache

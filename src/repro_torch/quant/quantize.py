@@ -109,6 +109,16 @@ def quantize(w: torch.Tensor, bits: int, group: int = DEFAULT_GROUP,
     return QuantizedTensor((lo | (hi << 4)).contiguous(), scales, 4, path)
 
 
+def quantize_int8(w: torch.Tensor, group: int = DEFAULT_GROUP,
+                  path: str = "fused") -> QuantizedTensor:
+    return quantize(w, 8, group, path)
+
+
+def quantize_int4(w: torch.Tensor, group: int = DEFAULT_GROUP,
+                  path: str = "fused") -> QuantizedTensor:
+    return quantize(w, 4, group, path)
+
+
 def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     """codes * repeat(scales) in the target dtype, materialised in one
     pass (the dequant path's traffic): ``kernels/dequantize`` launches

@@ -261,8 +261,10 @@ class DecodeEngine:
         ``session_ttl_s`` end a session with a terminal status,
         ``self_audit`` checks the page accounting on idle ticks, and
         ``restore_patience`` holds a parked copy that many ticks before
-        re-prefill supersedes it.  ``shared_programs`` is accepted for
-        the reference's API; each scheduler captures its own graphs.
+        re-prefill supersedes it.  ``shared_programs`` serves from the
+        model's cache and captured graphs for this cache signature,
+        shared with earlier calls (serving/programs.py): a later call
+        with the same shapes, params and sampling captures nothing.
         Returns a ``ContinuousResult``."""
         from repro_torch.serving.scheduler import SlotScheduler
         sched = SlotScheduler(self.model, self.params, n_slots=n_slots,

@@ -28,6 +28,13 @@ Sampling draws from a ``torch.Generator`` seeded with ``seed``, eagerly
 at K=1 and inside the captured graph at K > 1 (registered with it, so
 captured and uncaptured ticks draw alike); greedy streams are the
 contract, stochastic draws do not follow the reference's keys.
+
+``shared_programs=True`` serves from the model's shared entry for this
+cache signature (serving/programs.py): its cache, zeroed in place, its
+generator, reseeded with ``seed``, and the graphs captured over them by
+schedulers before this one.  The newest scheduler of a signature owns
+the entry; an older one raises on its next tick or device call, while
+its result, store and counters stay readable.
 """
 from __future__ import annotations
 
@@ -114,7 +121,6 @@ class SlotScheduler(VirtualClockMixin):
         self.dispatch_mode = dispatch_mode
         self.temperature = temperature
         self.top_k = top_k
-        self.gen = torch.Generator(device=model.device).manual_seed(seed)
         self.max_ticks = max_ticks
         self.steps_per_tick = steps_per_tick
         self.eos_id = eos_id
@@ -132,8 +138,6 @@ class SlotScheduler(VirtualClockMixin):
         self.virtual_step_s = virtual_step_s
         self.virtual_dispatch_s = virtual_dispatch_s
         self.virtual_host_copy_s = virtual_host_copy_s
-        # shared_programs is the reference's API only: each scheduler
-        # captures its own graphs, which read its own cache's addresses
         self.now_s = 0.0
         self._pending: List[Tuple[float, int, _Session]] = []
         self._arrivals: List[Tuple[float, int, _Session]] = []
@@ -141,7 +145,8 @@ class SlotScheduler(VirtualClockMixin):
         self.arrivals_released = 0
         self.horizon_hist: collections.Counter = collections.Counter()
 
-        self._progs = SchedulerPrograms(model, paged=paged, kv_tier=kv_tier)
+        self._progs = SchedulerPrograms(model, paged=paged, kv_tier=kv_tier,
+                                        shared_programs=shared_programs)
         self.paged = paged
         if prefix_cache and not paged:
             raise NotImplementedError(
@@ -164,12 +169,15 @@ class SlotScheduler(VirtualClockMixin):
                 n_pages = 1 + n_slots * self.max_blocks   # full backing
             self.n_pages = n_pages
             self.prefill_chunk = prefill_chunk
-            self.cache = model.init_cache(
-                n_slots, max_len, kv_dtype=kv_dtype, paged=True,
-                page_size=page_size, n_pages=n_pages)
+            cache_kw = dict(paged=True, page_size=page_size, n_pages=n_pages)
         else:
-            self.cache = model.init_cache(n_slots, max_len,
-                                          kv_dtype=kv_dtype, slotted=True)
+            cache_kw = dict(slotted=True)
+        # shared_programs: the model's cache and generator for this cache
+        # signature, zeroed and reseeded, with the graphs captured over them
+        self.cache, self.gen = self._progs.adopt(
+            (n_slots, max_len, kv_dtype or model.dtype) + tuple(cache_kw.items()),
+            lambda: model.init_cache(n_slots, max_len, kv_dtype=kv_dtype,
+                                     **cache_kw), seed)
         # ---- fault tolerance (serving/faults.py; all default-off) ----
         self.fault_injector = fault_injector
         self.retry_budget = retry_budget
@@ -244,6 +252,9 @@ class SlotScheduler(VirtualClockMixin):
             # dispatch A/B: the StepProgram decomposition's executors
             self._program = model.step_program(params, self.cache)
             self._executor = self._program.executor(dispatch_mode)
+        # shared graphs may arrive captured: report captures relative to
+        # this instance's start
+        self._step_cache_base = self._progs.raw_step_cache_size() or 0
 
     # ------------------------------------------------------------- intro
     @property
@@ -276,9 +287,13 @@ class SlotScheduler(VirtualClockMixin):
         return self.store.flush_prefix() if self.paged else 0
 
     def step_cache_size(self) -> Optional[int]:
-        """Decode-step CUDA graphs captured (one per (route, K); None on
-        the CPU, where nothing is captured)."""
-        return self._progs.raw_step_cache_size()
+        """Decode-step CUDA graphs captured since this scheduler was
+        built (one per (route, K, params, sampling); None on the CPU,
+        where nothing is captured)."""
+        raw = self._progs.raw_step_cache_size()
+        if raw is None:
+            return None
+        return raw - self._step_cache_base
 
     @property
     def launches_per_step(self) -> int:
@@ -940,6 +955,8 @@ class SlotScheduler(VirtualClockMixin):
     def tick(self) -> List[Event]:
         """One iteration: continue chunked prefills, backfill, tier idle
         work, one batched decode dispatch, evict completed sessions."""
+        # before any write: a superseded scheduler's cache is another's
+        self._progs.check_owner()
         n_before = len(self.events)
         steps0, pf0 = self.decode_steps, self.prefill_tokens
         self._release_arrivals()

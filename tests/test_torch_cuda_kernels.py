@@ -624,6 +624,70 @@ def test_paged_scheduler_stochastic_graph_replays_equal_plain_calls(cuda, adapti
         {r.session_id: r.max_new_tokens for r in reqs}
 
 
+@pytest.mark.parametrize("case", ["greedy_k1", "int8_k4", "int8_k4_adaptive",
+                                  "sampled_k4"])
+def test_shared_scheduler_replays_the_first_ones_graphs(cuda, case):
+    """``shared_programs``: a second paged scheduler over the model, the
+    shape and the params of a first captures no graph (``step_cache_size``
+    0, ``captured_launches`` unchanged), never calls kernel 2's wrapper,
+    and its replays launch kernel 2 once a layer and device step; its
+    event log and generator state equal the first's and a fresh unshared
+    scheduler's with the same seed.  A scheduler with other params (and,
+    at K=4, another top_k) on the same entry captures its own graph and
+    serves what its unshared twin serves."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import SessionRequest, SlotScheduler, programs
+    cfg = get_config("qwen2.5-3b").reduced().replace(dtype="float32")
+    model = Model(cfg, decode_backend="cuda", device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    reqs = [SessionRequest(f"s{i}", (torch.arange(6 + 3 * i) * (i + 5)
+                                     % cfg.vocab_size).numpy(), 6 + i % 3)
+            for i in range(5)]
+    K = 1 if case == "greedy_k1" else 4
+    kw = dict(n_slots=2, max_len=40, paged=True, page_size=8, n_pages=1 + 5,
+              steps_per_tick=K, adaptive_k=case.endswith("adaptive"), seed=11,
+              kv_dtype=None if case == "greedy_k1" else torch.int8)
+    if case == "sampled_k4":
+        kw.update(temperature=0.8, top_k=5)
+
+    def serve(shared, p=params, **over):
+        sched = SlotScheduler(model, p, shared_programs=shared, **dict(kw, **over))
+        for r in reqs:
+            sched.submit(r)
+        wrapper, captured = pda_ops.launches, dict(programs.captured_launches)
+        replayed = programs.replay_launches.get("paged_decode_attention", 0)
+        res = sched.run()
+        return res, sched.gen.get_state(), dict(
+            wrapper=pda_ops.launches - wrapper,
+            captured_moved=dict(programs.captured_launches) != captured,
+            replayed=programs.replay_launches.get("paged_decode_attention", 0)
+            - replayed)
+
+    first, first_state, _ = serve(True)
+    second, second_state, n = serve(True)
+    fresh, fresh_state, _ = serve(False)
+    assert first.step_cache_size >= 1 and fresh.step_cache_size == first.step_cache_size
+    assert second.step_cache_size == 0 and not n["captured_moved"]
+    assert n["wrapper"] == 0
+    device_steps = sum(k * d for k, d in second.horizon_hist.items()) if K > 1 \
+        else second.dispatches
+    assert n["replayed"] == device_steps * cfg.n_layers
+    assert first.preemptions >= 1
+    for res, state in ((first, first_state), (fresh, fresh_state)):
+        assert second.events == res.events and torch.equal(second_state, state)
+    others = [dict(p=model.init(torch.Generator(device=cuda).manual_seed(1)))]
+    if K > 1:
+        others.append(dict(top_k=3))
+    for over in others:
+        got, _, _ = serve(True, **over)
+        twin, _, _ = serve(False, **over)
+        assert got.step_cache_size >= 1
+        assert got.events == twin.events
+        assert {s: r.tokens.tolist() for s, r in got.sessions.items()} == \
+            {s: r.tokens.tolist() for s, r in twin.sessions.items()}
+
+
 def _moe_requests(cfg):
     """Five sessions through three slots, slot 0's short: it frees while
     slots 1 and 2 decode, so free lanes (token 0) route through the
