@@ -331,9 +331,10 @@ Phases, in order; each raises on failure and nothing catches:
     ``torch.cuda.set_sync_debug_mode("warn")`` on and every warning's
     Python stack caught: eager ``Model.decode_step`` and greedy
     ``decode_steps``, the ``full_jit`` executor's replay,
-    ``DecodeEngine.generate_streamed`` (timed=False), and the paged
+    ``DecodeEngine.generate_streamed`` (timed=False; half of the calls
+    with the span recorder of ``core/spans.py`` on), and the paged
     scheduler's ``_decode_tick_single`` (with ``_run_step``) and
-    ``_decode_tick_horizon`` (K=4); then ``jit_train_step``'s replay
+    ``_decode_tick_horizon`` (K=4; the recorder on); then ``jit_train_step``'s replay
     (``_GraphStep.__call__``) on qwen2.5-3b, 2 layers, seq 512.  For each
     function, the syncs a call the card saw, site by site (the chain of
     the repository's frames from the function inward), beside the
@@ -4458,6 +4459,16 @@ def sc_model(dev, arch):
     return model, model.init(torch.Generator(device=dev).manual_seed(0))
 
 
+def span_recording(dev):
+    """The port's span recorder on ``dev``; a null context in a tree that
+    has none (``scripts/sync_probe.py`` drives older trees)."""
+    try:
+        from repro_torch.core import spans
+    except ImportError:
+        return contextlib.nullcontext()
+    return spans.recording(dev)
+
+
 def drive_decode(det, dev, model, params):
     """Eager ``decode_step`` and greedy ``decode_steps`` (horizon 4) on a
     prefilled batch-1 cache, then the ``full_jit`` executor of
@@ -4488,7 +4499,8 @@ def drive_decode(det, dev, model, params):
 
 def drive_engine(det, dev, model, params):
     """``generate_streamed`` (timed=False), its shape's graph captured by
-    a first request."""
+    a first request; as many calls again with the span recorder on
+    (``core/spans.py``), whose events add no synchronize."""
     from repro_torch.serving import DecodeEngine
     engine = DecodeEngine(model, params)
     batch = prompt_batch(model.cfg.vocab_size, dev, SC_PROMPT, seed=4)
@@ -4497,6 +4509,9 @@ def drive_engine(det, dev, model, params):
     gen = det.counted("DecodeEngine.generate_streamed", engine.generate_streamed)
     for _ in range(SC_CALLS):
         gen(batch, **kw)
+    with span_recording(dev):
+        for _ in range(SC_CALLS):
+            gen(batch, **kw)
     torch.cuda.synchronize()
 
 
@@ -4504,7 +4519,7 @@ def drive_scheduler(det, dev, model, params):
     """The paged scheduler (4 slots, page 16, chunk 256) at K=1 and K=4:
     a first run of 4 sessions captures the step graph, then 4 more
     sessions run with the tick functions and the page store's ``sync``
-    counted."""
+    counted, and the span recorder on."""
     from repro_torch.launch.serve import mixed_requests
     from repro_torch.serving import SlotScheduler
     reqs = mixed_requests(model.cfg, 8, base_prompt=SC_PROMPT // 2, base_new=SC_NEW,
@@ -4525,7 +4540,8 @@ def drive_scheduler(det, dev, model, params):
             sched.store.sync = det.counted("PageStore.sync", sched.store.sync)
             for r in reqs[4:]:
                 sched.submit(r)
-            res = sched.run()
+            with span_recording(dev):
+                res = sched.run()
         budgets = {r.session_id: r.max_new_tokens for r in reqs}
         if {sid: len(s.tokens) for sid, s in res.sessions.items()} != budgets:
             raise AssertionError(f"22b: the K={K} scheduler's sessions ended short")

@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.kernels import launch_counts
 
 Stage = Callable[[Any], Any]   # state dict -> state dict
@@ -114,7 +115,8 @@ def capture(fn: Callable[[], Any], inputs: Dict[str, torch.Tensor], *,
     Reference cycles are collected first and the collector is off
     during capture: a cycle freed inside it (a scheduler and its host
     tier's page-locked rows, say) would make CUDA calls that a capture
-    forbids, and the capture would fail."""
+    forbids, and the capture would fail.  Each capture counts one
+    ``graph_captures`` on the span recorder that is on."""
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
@@ -131,6 +133,7 @@ def capture(fn: Callable[[], Any], inputs: Dict[str, torch.Tensor], *,
     launches = {name: n - before[name] for name, n in launch_counts().items()
                 if n != before[name]}
     _tally(captured_launches, launches)
+    spans.count("graph_captures")
     return _Captured(graph, inputs, output, launches)
 
 

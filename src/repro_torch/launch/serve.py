@@ -32,7 +32,9 @@ fault plans on the paged scheduler:
       --kv-tier host --trace poisson --fault-plan mixed --slo-json
 
 Runs on the CUDA card unless ``--device cpu`` is given; weights are
-random, drawn on the device from ``--seed``.
+random, drawn on the device from ``--seed``.  ``--spans PATH`` records the
+port's spans and their device intervals (``core/spans.py``) over the run
+and writes them to PATH as Chrome-trace JSON, for Perfetto.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import floor as fl
+from repro_torch.core import spans
 from repro_torch.core.dispatch import MODES
 from repro_torch.core.hardware import GPU_H100
 from repro_torch.models.attention import DECODE_BACKENDS
@@ -180,6 +183,10 @@ def main(argv=None):
                     help="ticks a parked host copy is held while the "
                          "page gate can't cover its restore before "
                          "re-prefill admission supersedes it")
+    ap.add_argument("--spans", default=None, metavar="PATH",
+                    help="record the port's spans over the run and write "
+                         "them, with their device intervals, to PATH as "
+                         "Chrome-trace JSON (for Perfetto)")
     args = ap.parse_args(argv)
     if args.weights:
         args.quant = {"int8": "int8_fused",
@@ -209,11 +216,24 @@ def main(argv=None):
     engine = DecodeEngine(
         model, params, quant_path=args.quant,
         kv_dtype=torch.int8 if args.kv_quant == "int8" else None)
+    if not args.spans:
+        return serve(engine, cfg, args)
+    with spans.recording(model.device) as rec:
+        rc = serve(engine, cfg, args)
+    n = rec.chrome_trace(args.spans)
+    print(f"spans: {n} written to {args.spans} (Chrome trace), "
+          f"{rec.dropped} dropped")
+    return rc
+
+
+def serve(engine: DecodeEngine, cfg, args):
+    """The run ``args`` ask for: a trace replay, continuous batching or
+    batch-1 generation."""
     if args.trace:
         return serve_trace(engine, cfg, args)
     if args.continuous:
         return serve_continuous(engine, cfg, args)
-
+    model = engine.model
     batch = prompt_batch(cfg, args.batch, args.prompt_len, args.seed,
                          model.device)
     max_len = args.prompt_len + args.new_tokens + 1

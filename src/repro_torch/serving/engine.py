@@ -49,6 +49,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import spans
 from repro_torch.core.dispatch import StepProgram
 from repro_torch.models.model import Model
 from repro_torch.quant import quantize_tree
@@ -76,6 +77,7 @@ class DecodeEngine:
         self._caches: Dict[tuple, dict] = {}    # (B, max_len, kv_dtype) -> cache
         self._executors: Dict[tuple, object] = {}   # cache key + (loop, horizon)
         self._generators: Dict[tuple, torch.Generator] = {}   # executor key
+        self.calls = 0     # generate_streamed calls: the spans' request id
 
     # -------------------------------------------------------------- API
     def _sync(self) -> None:
@@ -153,8 +155,24 @@ class DecodeEngine:
         The generation wall is always timed (``tokens_per_s`` is real
         whether or not per-step instrumentation is on); ``timed=True``
         additionally synchronises after every step to record per-step
-        walls for percentile reporting."""
+        walls for percentile reporting.
+
+        With the span recorder on (``core/spans.py``), the call is one
+        ``engine.request`` span over ``engine.prefill``,
+        ``engine.first_token`` (its sample and the wall's sync), and a
+        token's ``engine.replay``, ``engine.sample`` and, when timed,
+        ``engine.readback``; prefill, replay and sample with their
+        device intervals."""
+        self.calls += 1
+        rid = self.calls
+        rec = spans.recorder()
+        if rec is not None:
+            top = rec.open("engine.request", request=rid)
+            sid = rec.open("engine.prefill", top, rid, device=True)
         logits, key = self._prefill_reused(batch, max_len)
+        if rec is not None:
+            rec.close(sid)
+            sid = rec.open("engine.first_token", top, rid)
         cache = self._caches[key]
         gen = self._generator(key + ("step",), seed)
         out, times = [], []
@@ -162,18 +180,33 @@ class DecodeEngine:
         out.append(tok)
         self._sync()  # torchcheck: disable=hot-sync -- the generation wall starts once the prefill has run: one sync a request, not a token
         t_gen = time.perf_counter()
+        if rec is not None:
+            rec.close(sid)
         for _ in range(n_new - 1):
             t0 = time.perf_counter()
+            if rec is not None:
+                sid = rec.open("engine.replay", top, rid, device=True)
             logits = self._run(key + ("step",), self.decode_stage,
                                {"tokens": self._token_shape(tok),
                                 "cache": cache})["logits"]
+            if rec is not None:
+                rec.close(sid)
+                sid = rec.open("engine.sample", top, rid, device=True)
             tok = sample(logits[:, -1], gen, temperature=temperature, top_k=top_k)
+            if rec is not None:
+                rec.close(sid)
             if timed:
+                if rec is not None:
+                    sid = rec.open("engine.readback", top, rid)
                 self._sync()
                 times.append(time.perf_counter() - t0)
+                if rec is not None:
+                    rec.close(sid)
             out.append(tok)
         self._sync()  # torchcheck: disable=hot-sync -- the generation wall ends when the last token has run: one sync a request, not a token
         wall = time.perf_counter() - t_gen
+        if rec is not None:
+            rec.close(top)
         tokens = torch.stack(out, dim=1)
         tps = (n_new - 1) / wall if n_new > 1 and wall > 0 else float("nan")
         return GenerationResult(tokens, times, tps)

@@ -47,6 +47,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.dispatch import MODES, launch_count, pinned_copy
 from repro_torch.models.model import Model
 from repro_torch.serving.faults import FaultInjector, InjectedFault
@@ -127,6 +128,10 @@ class SlotScheduler(VirtualClockMixin):
         self.timed = timed
         self.host_dispatch_s = 0.0
         self.host_sync_s = 0.0
+        # the span recorder fetched at a tick's start, the tick's span
+        # and its admission's (core/spans.py)
+        self._rec: Optional[spans.Recorder] = None
+        self._tick_span = self._admit_span = -1
         self.adaptive_k = adaptive_k
         self.min_steps_per_tick = min_steps_per_tick
         self.priority_preemption = priority_preemption
@@ -631,11 +636,17 @@ class SlotScheduler(VirtualClockMixin):
             base = len(sess.pages)
             sess.pages.extend(got)
             self.store.map_pages(slot, base, got)
+        rec = self._rec
+        if rec is not None:
+            span = rec.open("sched.chunk", self._admit_span, sess.sid,
+                            device=True)
         self._sync_device()
         chunk = torch.from_numpy(sess.prefill_seq[start:start + C])
         logits, self.cache = self._progs.prefill_chunk(
             self.params, {"tokens": chunk[None, :].to(self.model.device)},
             self.cache, slot, start)
+        if rec is not None:
+            rec.close(span, counts={"tokens": C})
         sess.prefilled = start + C
         sess.pos = sess.prefilled
         self.store.set_pos(slot, sess.prefilled)
@@ -954,11 +965,24 @@ class SlotScheduler(VirtualClockMixin):
 
     def tick(self) -> List[Event]:
         """One iteration: continue chunked prefills, backfill, tier idle
-        work, one batched decode dispatch, evict completed sessions."""
+        work, one batched decode dispatch, evict completed sessions.
+
+        With the span recorder on (``core/spans.py``) the tick is one
+        ``sched.tick`` span (counts: its tokens, prefill tokens and
+        dispatches) over ``sched.admit`` (arrivals, faults, continued
+        prefills and the backfill, each prefill program a
+        ``sched.chunk`` of its session with the program's device
+        interval) and, when it dispatches, ``sched.dispatch`` (the
+        program's device interval), ``sched.readback`` and
+        ``sched.reconcile``."""
         # before any write: a superseded scheduler's cache is another's
         self._progs.check_owner()
         n_before = len(self.events)
         steps0, pf0 = self.decode_steps, self.prefill_tokens
+        rec = self._rec = spans.recorder()
+        if rec is not None:
+            self._tick_span = rec.open("sched.tick")
+            self._admit_span = rec.open("sched.admit", self._tick_span)
         self._release_arrivals()
         self._poll_faults()
         if self.paged:
@@ -966,6 +990,8 @@ class SlotScheduler(VirtualClockMixin):
                 if sess is not None and not sess.decoding:
                     self._prefill_next_chunk(slot, sess)
         self._backfill()
+        if rec is not None:
+            rec.close(self._admit_span)
         if self.tiered and not self.waiting and not self._arrivals:
             # no admission pressure: let the policy pre-migrate
             # (LookAheadSpill shadow-copies the predicted victim)
@@ -986,6 +1012,12 @@ class SlotScheduler(VirtualClockMixin):
             self.now_s = max(self.now_s,
                              min(e for e, _ in self._pressure_holds))
         self.tick_count += 1
+        if rec is not None:
+            rec.close(self._tick_span, counts={
+                "tokens": sum(ev[0] == "token"
+                              for ev in self.events[n_before:]),
+                "prefill_tokens": self.prefill_tokens - pf0,
+                "dispatches": self.decode_steps - steps0})
         return self.events[n_before:]
 
     def _decode_tick_single(self) -> None:  # staticcheck: hotpath
@@ -1009,17 +1041,26 @@ class SlotScheduler(VirtualClockMixin):
             self.step_kv_blocks.append(sum(
                 -(-(sess.pos + 1) // self.page_size)
                 for _, sess in active))
-        t0 = time.perf_counter()
+        rec, tick = self._rec, self._tick_span
+        t0 = time.perf_counter_ns()
+        if rec is not None:
+            span = rec.open("sched.dispatch", tick, device=True, t=t0)
         logits, self.cache = self._run_step(pinned_copy(toks, self.model.device))
         nxt = self._sample(logits[:, -1])
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
+        if rec is not None:
+            rec.close(span, t=t1, counts={"steps": 1})
+            span = rec.open("sched.readback", tick, t=t1)
         # torchcheck: disable=hot-sync -- the ONE deliberate per-tick sync: sampled tokens must reach the host to be emitted
         # staticcheck: disable=hot-sync -- the ONE deliberate per-tick sync: sampled tokens must reach the host to be emitted
         nxt = np.asarray(nxt.cpu())
-        t2 = time.perf_counter()
-        self.host_dispatch_s += t1 - t0
-        self.host_sync_s += t2 - t1
-        dt = t2 - t0
+        t2 = time.perf_counter_ns()
+        if rec is not None:
+            rec.close(span, t=t2)
+            span = rec.open("sched.reconcile", tick, t=t2)
+        self.host_dispatch_s += (t1 - t0) * 1e-9
+        self.host_sync_s += (t2 - t1) * 1e-9
+        dt = (t2 - t0) * 1e-9
         self.decode_steps += 1
         self._charge(1)
         screened: set = set()
@@ -1051,6 +1092,8 @@ class SlotScheduler(VirtualClockMixin):
             self.events.append(("token", sess.sid, slot, tok))
             if sess.done or self._hit_eos(tok):
                 self._finish(slot, sess)
+        if rec is not None:
+            rec.close(span)
 
     def _run_step(self, tokens: torch.Tensor):  # staticcheck: hotpath
         """One decode step; ``tokens`` from ``pinned_copy``."""
@@ -1089,18 +1132,27 @@ class SlotScheduler(VirtualClockMixin):
         for slot, sess in active:
             toks[slot, 0] = sess.next_input_token
             steps_left[slot] = plan[slot]
-        t0 = time.perf_counter()
+        rec, tick = self._rec, self._tick_span
+        t0 = time.perf_counter_ns()
+        if rec is not None:
+            span = rec.open("sched.dispatch", tick, device=True, t=t0)
         dev = self.model.device
         tok_mat, self.cache = self._progs.steps(
             self.params, self.cache, pinned_copy(toks, dev),
             pinned_copy(steps_left, dev), self.gen, horizon=K,
             temperature=self.temperature, top_k=self.top_k,
             eos_id=self.eos_id)
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
+        if rec is not None:
+            rec.close(span, t=t1, counts={"steps": K})
+            span = rec.open("sched.readback", tick, t=t1)
         # torchcheck: disable=hot-sync -- the ONE deliberate macro-tick sync: up to K*slots sampled tokens in one transfer
         # staticcheck: disable=hot-sync -- the ONE deliberate macro-tick sync: up to K*slots sampled tokens in one transfer
         tok_mat = np.array(tok_mat.cpu())   # a writable host copy
-        t2 = time.perf_counter()
+        t2 = time.perf_counter_ns()
+        if rec is not None:
+            rec.close(span, t=t2)
+            span = rec.open("sched.reconcile", tick, t=t2)
         screen = self._screen_logits
         if screen:
             for slot, sess in active:
@@ -1109,9 +1161,9 @@ class SlotScheduler(VirtualClockMixin):
                     # the range check below quarantines at step 0, so no
                     # poisoned token ever commits
                     tok_mat[slot, :] = self._vocab
-        self.host_dispatch_s += t1 - t0
-        self.host_sync_s += t2 - t1
-        dt = t2 - t0
+        self.host_dispatch_s += (t1 - t0) * 1e-9
+        self.host_sync_s += (t2 - t1) * 1e-9
+        dt = (t2 - t0) * 1e-9
         self.decode_steps += 1
         self.horizon_hist[K] += 1
         # ---- reconciliation: step-major walk mirrors the device loop ----
@@ -1155,6 +1207,8 @@ class SlotScheduler(VirtualClockMixin):
             # all-masked steps move no live pages)
             self.step_kv_blocks.extend(
                 b for b, n in zip(kv_blocks, emitted) if n)
+        if rec is not None:
+            rec.close(span)
 
     @torch.inference_mode()
     def run(self) -> ContinuousResult:

@@ -1888,3 +1888,124 @@ def test_train_distributed_torchrun(cuda, tmp_path):
     assert any("uncaptured" in line for line in lines[0])
     assert lines[0][-1] == lines[1][-1]
 
+
+
+def _span_engine(cuda):
+    """qwen2.5-7b at full width and depth, bf16 (15 GB of random weights):
+    a replay of ~7.9 ms, against which the graph launch's latency after a
+    synchronize (~0.05-0.1 ms, and as much again from call to call) stays
+    near 1%."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import DecodeEngine
+    cfg = get_config("qwen2.5-7b")
+    model = Model(cfg, decode_backend="cuda", device=cuda)
+    return DecodeEngine(model, model.init(torch.Generator(device=cuda).manual_seed(0)))
+
+
+def test_span_replay_device_time_equals_a_lone_replay(cuda):
+    """``engine.replay``'s device interval (CUDA events around the graph
+    replay, on the recorder's clock) reads the replay's time: its median
+    over a timed request is within 5% of events around the same graph
+    replayed alone between synchronizes.  Nothing is captured while the
+    recorder is on."""
+    import statistics
+    from repro_torch.core import spans
+    eng = _span_engine(cuda)
+    batch = _ab_prompt(eng, cuda, 256)
+    kw = dict(max_len=256 + 32 + 40, n_new=32, timed=True)
+    want = eng.generate_streamed(batch, **kw).tokens       # captures
+    with spans.recording(cuda) as rec:
+        got = eng.generate_streamed(batch, **kw).tokens
+    assert torch.equal(got, want)
+    ex = rec.export()
+    assert ex["counters"]["graph_captures"] == 0 and ex["dropped"] == 0
+    spanned = [s["device"][1] - s["device"][0] for s in ex["spans"]
+               if s["name"] == "engine.replay"]
+    assert len(spanned) == 31
+    for s in ex["spans"]:
+        if s["device"] is not None:     # on the host's clock, after its enqueue began
+            assert s["device"][0] >= s["t0_ns"] - 50_000
+    key, = [k for k in eng._executors if k[-1] == "step"]
+    run, cache = eng._executors[key], eng._caches[key[:3]]
+    state = {"tokens": torch.zeros((1, 1), dtype=torch.int32, device=cuda),
+             "cache": cache}
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    alone = []
+    for _ in range(31):
+        torch.cuda.synchronize()
+        a.record()
+        run(state)
+        b.record()
+        torch.cuda.synchronize()
+        alone.append(a.elapsed_time(b) * 1e6)
+    m, ref = statistics.median(spanned), statistics.median(alone)
+    assert abs(m - ref) <= 0.05 * ref, (m, ref)
+    del eng, run, cache, state
+    torch.cuda.empty_cache()
+
+
+def test_span_anchor_error_is_under_50_us(cuda):
+    """An event recorded right after a synchronize, mapped to the host
+    clock through the recorder's anchor, lands within 50 µs of the host
+    stamp taken after its record (p99 over 1000)."""
+    from repro_torch.core import spans
+    errs = sorted(abs(e) for e in spans.anchor_errors(cuda, 1000))
+    assert errs[len(errs) // 2] < 50_000 and errs[int(0.99 * len(errs))] < 50_000
+
+
+def _sync_stacks(fn):
+    """The Python stacks of every synchronizing operation torch's sync
+    detector saw while ``fn()`` ran."""
+    import traceback
+    import warnings
+    stacks = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            stacks.append(traceback.extract_stack()[:-1])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return stacks
+
+
+def test_recorded_requests_add_no_synchronize(cuda):
+    """With the recorder on, a request (untimed) and a paged K=4 tick loop
+    make the synchronizes they make with it off, at the same lines, and
+    none inside the recorder."""
+    from repro_torch.core import spans
+    from repro_torch.launch.serve import mixed_requests
+    from repro_torch.serving import SlotScheduler
+    eng = _ab_engine(cuda, "bf16")
+    batch = _ab_prompt(eng, cuda, 16)
+    kw = dict(max_len=40, n_new=10)
+    eng.generate_streamed(batch, **kw)
+
+    def sites(stacks):
+        return sorted((f.filename.rsplit("/", 1)[-1], f.lineno) for st in stacks
+                      for f in st[-3:] if "repro_torch" in f.filename)
+
+    def serve():
+        sched = SlotScheduler(eng.model, eng.params, n_slots=2, max_len=64,
+                              paged=True, page_size=16, prefill_chunk=16,
+                              steps_per_tick=4, shared_programs=True)
+        for r in mixed_requests(eng.cfg, 3, base_prompt=12, base_new=6, seed=2):
+            sched.submit(r)
+        sched.run()
+
+    serve()                             # captures the scheduler's graphs
+    off = _sync_stacks(lambda: (eng.generate_streamed(batch, **kw), serve()))
+    with spans.recording(cuda) as rec:
+        on = _sync_stacks(lambda: (eng.generate_streamed(batch, **kw), serve()))
+    names = {s["name"] for s in rec.export()["spans"]}
+    assert {"engine.replay", "sched.dispatch", "sched.chunk"} <= names
+    assert off and len(on) == len(off)
+    assert sites(on) == sites(off)
+    assert not any("spans.py" in f.filename for st in on for f in st)
